@@ -1,0 +1,119 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels have a plain C interface and are compiled by ``nvcc`` into one
+shared library, loaded with ``ctypes`` -- no PyTorch headers, so a build takes
+seconds, not minutes. The library lands in ``build/torch_kernels/<hash>/``
+under the repository root, keyed by a hash of the sources and the flags, and
+is built at first use: importing this module builds nothing, and nothing here
+runs on a machine without ``nvcc`` until a CUDA tensor reaches a kernel.
+
+Every C entry point launches on the stream it is given (the wrappers pass
+``torch.cuda.current_stream().cuda_stream``) and returns ``cudaGetLastError()``;
+:func:`check` turns a nonzero return into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "libisx_kernels.so"
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build this process ran (None: cached or not built)
+
+_vp, _i, _ll, _f, _sz = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_size_t,
+)
+_SIGNATURES = {
+    "isx_attention_fwd": (
+        [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _vp], _i,
+    ),
+    "isx_attention_smem_bytes": ([_i, _i], _sz),
+    "isx_score_int8": ([_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp], _i),
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless a library for these exact sources exists."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent builder never loads a partial file
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = handle
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        import torch
+
+        name = torch.cuda.get_device_name() if torch.cuda.is_available() else "?"
+        raise RuntimeError(f"{what}: CUDA error {rc} on {name}")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,444 @@
+"""Device-resident exact-cosine vector index with Rocchio feedback.
+
+Port of ``image_search_tpu/index/index.py::VectorIndex`` for one device, with
+f32 or int8 rows:
+
+- rows are stored l2-NORMALIZED next to their original norms, so the raw
+  vectors the reference stores are ``row * norm`` and the Rocchio average is
+  taken in raw space;
+- int8 rows are quantized on the host in the reference's numpy op order and
+  scored by kernel B2 (``ops.score_stream.stream_scores_int8``); f32 rows by a
+  plain ``q @ rows.T`` (plain XLA in the reference);
+- rows live in slabs: the first doubles up to ``slab_rows``, then whole new
+  slabs are added, so growth never copies the corpus; appends are written in
+  4096-row-aligned blocks;
+- tombstones are additive score penalties (0 live, NEG_INF removed), passed
+  to the scan only once a removal happened;
+- ``from_store`` opens an ``EmbeddingStore`` directory the reference wrote.
+
+Not ported yet (they raise): bf16 rows, the two-stage sketch search, the
+duplicate scan and device meshes.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from image_search_tpu_torch import _jaxfree
+from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, stream_scores_int8
+from image_search_tpu_torch.ops.topk import exact_topk
+
+log = logging.getLogger(__name__)
+
+EmbeddingStore = _jaxfree.store.EmbeddingStore
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+_UPDATE_BLOCK = 4096  # rows per aligned append block
+DEFAULT_SLAB_ROWS = 1 << 20  # rows per full slab (int8 x 768 = 0.77 GB)
+
+QUANT_DTYPES = {None: torch.float32, "int8": torch.int8}
+
+
+def _l2(x: torch.Tensor) -> torch.Tensor:
+    n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / torch.clamp(n, min=1e-12)
+
+
+def _gather_rows(slabs, scales, idx):
+    """Gather global rows [m] from the slab list -> [m, D] f32 normalized."""
+    out = torch.zeros((idx.shape[0], slabs[0].shape[1]), dtype=torch.float32, device=idx.device)
+    start = 0
+    for i, slab in enumerate(slabs):
+        n = slab.shape[0]
+        off = torch.clamp(idx - start, 0, n - 1)
+        rows = slab[off].float()
+        if slab.dtype == torch.int8:
+            rows = rows * scales[i][off][:, None]
+        in_slab = (idx >= start) & (idx < start + n)
+        out = torch.where(in_slab[:, None], rows, out)
+        start += n
+    return out
+
+
+def _gather_1d(slabs, idx):
+    """Gather a slabbed 1-D quantity (norms) at global idx [m] -> [m] f32."""
+    out = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    start = 0
+    for vec in slabs:
+        n = vec.shape[0]
+        off = torch.clamp(idx - start, 0, n - 1)
+        in_slab = (idx >= start) & (idx < start + n)
+        out = torch.where(in_slab, vec[off].float(), out)
+        start += n
+    return out
+
+
+def _rocchio_queries(slabs, scales, norms, text_emb, sel_idx):
+    """Reference Rocchio weighting (search.rs:60-67) in raw-vector space, for
+    B queries at once: query = average(average(selected_raw), text_raw).
+    ``sel_idx`` [B, m] holds global rows, -1 for none; a row with no
+    selection gives 0.5 * text, which l2-normalizes to exactly the plain
+    text query."""
+    B, m = sel_idx.shape
+    mask = (sel_idx >= 0).float()
+    idx = torch.clamp(sel_idx, min=0).reshape(-1)
+    raw = _gather_rows(slabs, scales, idx) * _gather_1d(norms, idx)[:, None]
+    raw = raw.reshape(B, m, -1) * mask[..., None]
+    sel_avg = raw.sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)[:, None]
+    return (sel_avg + text_emb.float()) * 0.5
+
+
+def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None):
+    """Exact cosine top-k over the slab list; global row ids follow the slab
+    concatenation order. ``pens`` (same slab layout, f32) is the additive
+    tombstone penalty, or None before the first removal."""
+    parts = []
+    start = 0
+    if scales is not None:
+        qi, qs = quantize_queries_int8(queries.float())
+        for i, slab in enumerate(slabs):
+            parts.append(
+                stream_scores_int8(
+                    slab, qi, qs, scales[i], size - start, None if pens is None else pens[i]
+                )
+            )
+            start += slab.shape[0]
+    else:
+        q = _l2(queries.float())
+        for i, slab in enumerate(slabs):
+            s = q @ slab.T
+            if pens is not None:
+                s = s + pens[i][None, :]
+            n = slab.shape[0]
+            valid = (torch.arange(n, device=slab.device) + start) < size
+            parts.append(torch.where(valid[None, :], s, torch.full_like(s, NEG_INF)))
+            start += n
+    scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return exact_topk(scores, k)
+
+
+class VectorIndex:
+    """Exact cosine top-k index resident in device memory (slab storage)."""
+
+    def __init__(
+        self,
+        dim: int,
+        device="cuda",
+        min_capacity: int = 8192,
+        store=None,
+        quantize: Optional[str] = None,
+        slab_rows: int = DEFAULT_SLAB_ROWS,
+        capacity: Optional[int] = None,
+        mesh=None,
+    ):
+        if quantize == "bfloat16":
+            raise NotImplementedError("bf16 index rows are not ported yet (use f32 or int8)")
+        if quantize not in QUANT_DTYPES:
+            raise ValueError(f"quantize must be one of {list(QUANT_DTYPES)}")
+        if mesh is not None:
+            raise NotImplementedError("device meshes are not ported yet")
+        self.dim = dim
+        self.device = torch.device(device)
+        self.store = store
+        self.quantize = quantize
+        self._row_dtype = QUANT_DTYPES[quantize]
+        self._cap_multiple = -(-max(min_capacity, _UPDATE_BLOCK) // _UPDATE_BLOCK) * _UPDATE_BLOCK
+        self._slab_rows = max(
+            self._cap_multiple, -(-slab_rows // self._cap_multiple) * self._cap_multiple
+        )
+        self._paths: List[str] = []
+        self._row: dict = {}
+        self._size = 0
+        # guards metadata and slab swaps; searches snapshot the slab list and
+        # size under it and compute outside it
+        self._lock = threading.RLock()
+        self._emb_slabs: List[torch.Tensor] = []
+        self._norm_slabs: List[torch.Tensor] = []
+        self._scale_slabs: Optional[List[torch.Tensor]] = [] if quantize == "int8" else None
+        self._pen_slabs: List[torch.Tensor] = []
+        self._removed = 0
+        if capacity is not None:
+            self._preallocate(capacity)
+        else:
+            self._append_slab(self._cap_multiple)
+        if store is not None and len(store):
+            # dead rows (tombstoned, or superseded by a later re-append) are
+            # skipped outright, as the reference does
+            live_mask, _ = store.liveness()
+            base, skipped = 0, 0
+            for paths, emb in store.iter_shards():
+                if live_mask is None:
+                    self._add_in_memory(paths, emb)
+                else:
+                    keep = [i for i in range(len(paths)) if live_mask[base + i]]
+                    skipped += len(paths) - len(keep)
+                    if keep:
+                        self._add_in_memory([paths[i] for i in keep], emb[keep])
+                base += len(paths)
+            log.info(
+                "index restored from %s: %d live vectors (%d dead rows skipped)",
+                store.directory, self._size, skipped,
+            )
+            store.release_path_cache()
+
+    @classmethod
+    def from_store(cls, store, device="cuda", quantize: Optional[str] = None, **kwargs):
+        return cls(store.dim, device=device, store=store, quantize=quantize, **kwargs)
+
+    # -- storage ------------------------------------------------------------
+
+    def _zeros(self, shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _append_slab(self, rows: int) -> None:
+        self._check_memory(self.capacity + rows)
+        self._emb_slabs.append(self._zeros((rows, self.dim), self._row_dtype))
+        self._norm_slabs.append(self._zeros((rows,)))
+        if self._scale_slabs is not None:
+            self._scale_slabs.append(self._zeros((rows,)))
+        self._pen_slabs.append(self._zeros((rows,)))
+
+    def _preallocate(self, capacity: int) -> None:
+        remaining = max(capacity, 1)
+        while remaining > 0:
+            rows = min(self._slab_rows, max(remaining, self._cap_multiple))
+            rows = -(-rows // self._cap_multiple) * self._cap_multiple
+            self._append_slab(rows)
+            remaining -= rows
+
+    def _bytes_per_row(self) -> int:
+        per = self.dim * torch.tensor([], dtype=self._row_dtype).element_size() + 4 + 4
+        return per + (4 if self._scale_slabs is not None else 0)
+
+    def _check_memory(self, projected_rows: int) -> None:
+        """Fail with an actionable error instead of a device OOM: slabs may
+        take at most 85% of the card's memory (the towers live in the rest)."""
+        if self.device.type != "cuda":
+            return
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        need = projected_rows * self._bytes_per_row()
+        if need > 0.85 * total:
+            raise RuntimeError(
+                f"index growth to {projected_rows:,} rows needs ~{need / 1e9:.1f} GB, over "
+                f"85% of the card's {total / 1e9:.1f} GB; use --index-quantize int8"
+            )
+
+    @property
+    def capacity(self) -> int:
+        return sum(s.shape[0] for s in self._emb_slabs)
+
+    def _ensure_capacity(self, n: int) -> None:
+        while self.capacity < n:
+            last = self._emb_slabs[-1].shape[0]
+            if last < self._slab_rows:
+                # the FIRST slab doubles up to slab_rows; old + new are both
+                # at most one slab
+                new_rows = min(self._slab_rows, last * 2)
+                self._check_memory(self.capacity + new_rows)
+
+                def grow(old, shape):
+                    new = self._zeros(shape, old.dtype)
+                    new[: old.shape[0]] = old
+                    return new
+
+                self._emb_slabs[-1] = grow(self._emb_slabs[-1], (new_rows, self.dim))
+                self._norm_slabs[-1] = grow(self._norm_slabs[-1], (new_rows,))
+                if self._scale_slabs is not None:
+                    self._scale_slabs[-1] = grow(self._scale_slabs[-1], (new_rows,))
+                self._pen_slabs[-1] = grow(self._pen_slabs[-1], (new_rows,))
+            else:
+                self._append_slab(self._slab_rows)
+
+    def _locate(self, gpos: int) -> Tuple[int, int]:
+        """Global row position -> (slab index, slab-local offset)."""
+        start = 0
+        for i, slab in enumerate(self._emb_slabs):
+            n = slab.shape[0]
+            if gpos < start + n:
+                return i, gpos - start
+            start += n
+        raise IndexError(gpos)
+
+    def _quantize_host(self, normalized: np.ndarray):
+        if self.quantize == "int8":
+            amax = np.abs(normalized).max(axis=1)
+            scale = np.maximum(amax, 1e-12) / 127.0
+            q = np.clip(np.round(normalized / scale[:, None]), -127, 127).astype(np.int8)
+            return q, scale.astype(np.float32)
+        return normalized, None
+
+    # -- mutation -------------------------------------------------------------
+
+    def __len__(self) -> int:
+        """Number of LIVE (searchable) rows."""
+        return self._size - self._removed
+
+    @property
+    def paths(self) -> List[str]:
+        return self._paths
+
+    def _add_in_memory(self, paths: Sequence[str], embeddings: np.ndarray) -> int:
+        with self._lock:
+            embeddings = np.asarray(embeddings, np.float32)
+            # dedup against the index AND within the batch (first one wins)
+            seen: set = set()
+            keep = []
+            for i, p in enumerate(paths):
+                if p in self._row or p in seen:
+                    continue
+                seen.add(p)
+                keep.append(i)
+            if not keep:
+                return 0
+            if len(keep) < len(paths):
+                paths = [paths[i] for i in keep]
+                embeddings = embeddings[keep]
+            n = len(paths)
+            norms = np.linalg.norm(embeddings, axis=1)
+            normalized = embeddings / np.maximum(norms, 1e-12)[:, None]
+            rows, scales = self._quantize_host(normalized)
+            norms = norms.astype(np.float32)
+            self._ensure_capacity(self._size + n)
+            off = 0
+            while off < n:
+                gpos = self._size + off
+                m = min(_UPDATE_BLOCK - gpos % _UPDATE_BLOCK, n - off)  # never straddles a slab
+                i, local = self._locate(gpos)
+                sl = slice(local, local + m)
+                self._emb_slabs[i][sl] = torch.from_numpy(np.ascontiguousarray(rows[off : off + m])).to(self.device)
+                self._norm_slabs[i][sl] = torch.from_numpy(norms[off : off + m]).to(self.device)
+                if self._scale_slabs is not None:
+                    self._scale_slabs[i][sl] = torch.from_numpy(scales[off : off + m]).to(self.device)
+                off += m
+            for j, p in enumerate(paths):
+                self._row[p] = self._size + j
+            self._paths.extend(paths)
+            self._size += n
+            return n
+
+    def add(self, paths: Sequence[str], embeddings: np.ndarray) -> int:
+        """Insert raw (unnormalized) embeddings; dedups by path; persists to
+        the attached store if any. Returns #rows actually added."""
+        with self._lock:
+            added = self._add_in_memory(paths, embeddings)
+            if added and self.store is not None:
+                self.store.append(list(paths), np.asarray(embeddings, np.float32))
+            return added
+
+    def _remove_in_memory(self, paths: Sequence[str]):
+        with self._lock:
+            rows, removed = [], []
+            for p in paths:
+                r = self._row.pop(p, None)
+                if r is not None:
+                    rows.append(r)
+                    removed.append(p)
+            if not rows:
+                return 0, []
+            by_slab: dict = {}
+            for g in rows:
+                i, local = self._locate(g)
+                by_slab.setdefault(i, []).append(local)
+            for i, locs in by_slab.items():
+                self._pen_slabs[i][torch.tensor(locs, device=self.device)] = NEG_INF
+            self._removed += len(rows)
+            return len(rows), removed
+
+    def remove_paths(self, paths: Sequence[str]) -> int:
+        """Tombstone rows by path (masked, not compacted; with a store
+        attached they stay removed across restarts). Returns rows removed."""
+        with self._lock:
+            n, removed = self._remove_in_memory(paths)
+            if removed and self.store is not None:
+                self.store.tombstone(removed)
+            return n
+
+    # -- queries ---------------------------------------------------------------
+
+    def _clamp_k(self, k: int) -> int:
+        return max(1, min(k, self._size if self._size else 1))
+
+    def _snapshot(self):
+        """Caller holds the lock: slab references for lock-free compute."""
+        return (
+            tuple(self._emb_slabs),
+            tuple(self._norm_slabs),
+            None if self._scale_slabs is None else tuple(self._scale_slabs),
+            tuple(self._pen_slabs) if self._removed else None,
+        )
+
+    def _as_queries(self, x, rows: int) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device).reshape(rows, self.dim)
+
+    @staticmethod
+    def _to_host(s, i):
+        return s.cpu().numpy(), i.cpu().numpy().astype(np.int32)
+
+    def search(self, queries, k: int = 1000, approx: bool = False):
+        """Raw query vectors [B, D] or [D] (numpy or tensor) -> (scores [B, k],
+        row indices [B, k])."""
+        if approx:
+            raise NotImplementedError("approximate search is not ported yet")
+        q = torch.as_tensor(queries, dtype=torch.float32)
+        q = self._as_queries(q, q.numel() // self.dim)
+        with self._lock:
+            if self._size == 0:
+                B = q.shape[0]
+                return np.zeros((B, 0), np.float32), np.zeros((B, 0), np.int32)
+            k = self._clamp_k(k)
+            slabs, _, scales, pens = self._snapshot()
+            size = self._size
+        return self._to_host(*_search_local(slabs, size, q, k, scales, pens))
+
+    def search_with_feedback(self, text_embedding, selected_paths: Sequence[str], k: int = 1000):
+        """The reference's refinement search (search.rs:34-77). Unknown paths
+        are skipped; with no known selection this is the plain text search."""
+        with self._lock:
+            known = any(p in self._row for p in selected_paths)
+        if not known:
+            return self.search(text_embedding, k)
+        return self.search_with_feedback_batch(
+            self._as_queries(text_embedding, 1), [list(selected_paths)], k
+        )
+
+    def search_with_feedback_batch(self, text_embeddings, selected_paths_list, k: int = 1000):
+        """B Rocchio searches in one pass. ``text_embeddings`` is [B, D] raw
+        text vectors (numpy or device tensor); each selection list holds
+        absolute paths, possibly empty (then that row is the plain search,
+        bitwise)."""
+        B = len(selected_paths_list)
+        text = self._as_queries(text_embeddings, B)
+        with self._lock:
+            if self._size == 0:
+                return np.zeros((B, 0), np.float32), np.zeros((B, 0), np.int32)
+            k = self._clamp_k(k)
+            rows_list = [[self._row[p] for p in sel if p in self._row] for sel in selected_paths_list]
+            slabs, norms, scales, pens = self._snapshot()
+            size = self._size
+        m = max(1, max(len(r) for r in rows_list))
+        sel = np.full((B, m), -1, np.int64)
+        for b, r in enumerate(rows_list):
+            sel[b, : len(r)] = r
+        q = _rocchio_queries(slabs, scales, norms, text, torch.from_numpy(sel).to(self.device))
+        return self._to_host(*_search_local(slabs, size, q, k, scales, pens))
+
+    # -- lookups ---------------------------------------------------------------
+
+    def has_path(self, path: str) -> bool:
+        return path in self._row
+
+    def get_raw_embeddings(self, paths: Sequence[str]) -> np.ndarray:
+        """Stored raw vectors for the given paths (the search.rs:43-58 SELECT)."""
+        with self._lock:
+            rows = [self._row[p] for p in paths if p in self._row]
+            if not rows:
+                return np.zeros((0, self.dim), np.float32)
+            slabs, norms, scales, _ = self._snapshot()
+        idx = torch.tensor(rows, device=self.device)
+        raw = _gather_rows(slabs, scales, idx) * _gather_1d(norms, idx)[:, None]
+        return raw.cpu().numpy()

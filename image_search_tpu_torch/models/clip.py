@@ -1,0 +1,233 @@
+"""CLIP dual-tower model as ``nn.Module``s.
+
+Port of ``image_search_tpu/models/clip.py`` for inference. The math and the
+dtype policy are the reference's: activations in the weights' dtype (bf16 on
+the card), LayerNorm statistics, softmax and attention accumulation in f32.
+
+- ``encode_image``: patchify as a matmul, class token, pre-LN, blocks
+  ``0..L-2`` through kernel B1 (``ops.attention.fused_attention``), then the
+  CLS-only last block, post-LN and the projection.
+- ``encode_text``: token + position embedding, blocks ``0..L-2`` causal
+  through B1, then the EOS-only last block (pooled at the FIRST EOS token),
+  the final LN and the projection.
+
+The CLS/EOS-only last blocks stay plain torch, as they are plain XLA in the
+reference. Layouts differ from the reference's parameter pytree only in the
+``nn.Linear`` convention (``weight`` is ``[out, in]``); ``models.convert``
+maps one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from image_search_tpu_torch.ops.attention import NEG_INF, fused_attention
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm with f32 statistics, output cast back to x.dtype."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
+    return y.to(x.dtype)
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "quick_gelu":
+        # HF CLIP's QuickGELUActivation: x * sigmoid(1.702 * x)
+        return x * torch.sigmoid(1.702 * x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="none")
+    if kind == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+def _ln(d: int, eps: float) -> nn.LayerNorm:
+    return nn.LayerNorm(d, eps=eps)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block (HF CLIPEncoderLayer)."""
+
+    def __init__(self, tc):
+        super().__init__()
+        D, M = tc.hidden_size, tc.mlp_size
+        self.heads = tc.num_heads
+        self.act = tc.act
+        self.ln1 = _ln(D, tc.layernorm_eps)
+        self.qkv = nn.Linear(D, 3 * D)
+        self.o = nn.Linear(D, D)
+        self.ln2 = _ln(D, tc.layernorm_eps)
+        self.fc = nn.Linear(D, M)
+        self.proj = nn.Linear(M, D)
+
+    def mlp(self, x):
+        return self.proj(_act(self.fc(x), self.act))
+
+    def attention(self, xn, causal: bool):
+        """Self-attention over the LN'd input; q is pre-scaled by Hd^-0.5,
+        so the core runs at sm_scale 1. One fused qkv projection: the core
+        reads k and v as strided column blocks of it."""
+        D = xn.shape[-1]
+        Hd = D // self.heads
+        qkv = self.qkv(xn)
+        q = qkv[..., :D] * float(Hd**-0.5)
+        out = fused_attention(q, qkv[..., D : 2 * D], qkv[..., 2 * D :], self.heads, causal, 1.0)
+        return self.o(out)
+
+    def forward(self, x, causal: bool):
+        x = x + self.attention(_layer_norm(x, self.ln1), causal)
+        return x + self.mlp(_layer_norm(x, self.ln2))
+
+    def _qkv_rows(self, xn_q, xn):
+        """q for the selected rows [B, 1, D] (pre-scaled), k and v for all."""
+        D = xn.shape[-1]
+        Hd = D // self.heads
+        w, b = self.qkv.weight, self.qkv.bias
+        q = F.linear(xn_q, w[:D], b[:D]) * float(Hd**-0.5)
+        k = F.linear(xn, w[D : 2 * D], b[D : 2 * D])
+        v = F.linear(xn, w[2 * D :], b[2 * D :])
+        return q, k, v
+
+    def _pooled_attention(self, q, k, v, col_mask=None):
+        """Attention of one query row per batch element, the grouped kernel's
+        dtype sequence: f32 logits, f32 softmax, p in the activation dtype,
+        f32 PV accumulation."""
+        B, S, D = k.shape
+        H = self.heads
+        Hd = D // H
+        dtype = k.dtype
+        logits = torch.einsum(
+            "bqhd,bkhd->bhqk", q.reshape(B, 1, H, Hd).float(), k.reshape(B, S, H, Hd).float()
+        )
+        if col_mask is not None:
+            logits = logits.masked_fill(~col_mask, NEG_INF)
+        p = torch.softmax(logits, dim=-1).to(dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.reshape(B, S, H, Hd).float())
+        return self.o(out.to(dtype).reshape(B, 1, D))
+
+    def forward_cls(self, x):
+        """Last block truncated to the CLS row -> [B, 1, D] (``_block_cls``):
+        only x[:, 0] is read after the last layer, so its Q projection,
+        attention rows 1.. and MLP rows 1.. are dead work. K/V still cover
+        every token."""
+        xn = _layer_norm(x, self.ln1)
+        q, k, v = self._qkv_rows(xn[:, :1], xn)
+        c = x[:, :1] + self._pooled_attention(q, k, v)
+        return c + self.mlp(_layer_norm(c, self.ln2))
+
+    def forward_eos(self, x, eos_pos):
+        """Last text block truncated to each row's pooled (first-EOS)
+        position -> [B, 1, D] (``_block_eos``); the causal mask of that row
+        is the column mask ``col <= eos_pos[b]``."""
+        B, S, _ = x.shape
+        rows = torch.arange(B, device=x.device)
+        xn = _layer_norm(x, self.ln1)
+        q, k, v = self._qkv_rows(xn[rows, eos_pos][:, None], xn)
+        col = torch.arange(S, device=x.device)
+        mask = (col[None, :] <= eos_pos[:, None])[:, None, None, :]
+        c = x[rows, eos_pos][:, None] + self._pooled_attention(q, k, v, mask)
+        return c + self.mlp(_layer_norm(c, self.ln2))
+
+
+class VisionTower(nn.Module):
+    def __init__(self, vc, projection_dim: int):
+        super().__init__()
+        D = vc.hidden_size
+        self.cfg = vc
+        self.patch_embedding = nn.Linear(vc.patch_size * vc.patch_size * 3, D, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(D))
+        self.position_embedding = nn.Parameter(torch.empty(vc.seq_len, D))
+        self.pre_ln = _ln(D, vc.layernorm_eps)
+        self.blocks = nn.ModuleList(Block(vc) for _ in range(vc.num_layers))
+        self.post_ln = _ln(D, vc.layernorm_eps)
+        self.projection = nn.Linear(D, projection_dim, bias=False)
+
+
+class TextTower(nn.Module):
+    def __init__(self, tc, projection_dim: int):
+        super().__init__()
+        D = tc.hidden_size
+        self.cfg = tc
+        self.token_embedding = nn.Parameter(torch.empty(tc.vocab_size, D))
+        self.position_embedding = nn.Parameter(torch.empty(tc.context_length, D))
+        self.blocks = nn.ModuleList(Block(tc) for _ in range(tc.num_layers))
+        self.final_ln = _ln(D, tc.layernorm_eps)
+        self.projection = nn.Linear(D, projection_dim, bias=False)
+
+
+class CLIP(nn.Module):
+    """Both towers of one checkpoint; ``cfg`` is the reference's CLIPConfig."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if cfg.arch != "clip":
+            raise NotImplementedError(f"arch {cfg.arch!r}: only CLIP is ported so far")
+        self.cfg = cfg
+        self.text = TextTower(cfg.text, cfg.projection_dim)
+        self.vision = VisionTower(cfg.vision, cfg.projection_dim)
+        self.logit_scale = nn.Parameter(torch.empty(()))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vision.patch_embedding.weight.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.vision.patch_embedding.weight.device
+
+
+def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C] with (ph, pw, c) minor order."""
+    B, H, W, C = pixels.shape
+    gh, gw = H // patch, W // patch
+    x = pixels.reshape(B, gh, patch, gw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, gh * gw, patch * patch * C)
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    n = torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True)
+    return (x.float() / torch.clamp(n, min=eps)).to(x.dtype)
+
+
+def encode_image(model: CLIP, pixels: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """Preprocessed pixels [B, H, W, 3] (NHWC, normalized) -> [B, proj_dim]."""
+    v = model.vision
+    vc = v.cfg
+    dtype = model.dtype
+    B = pixels.shape[0]
+    x = v.patch_embedding(patchify(pixels.to(dtype), vc.patch_size))
+    cls = v.class_embedding.reshape(1, 1, -1).expand(B, 1, -1)
+    x = torch.cat([cls, x], dim=1) + v.position_embedding
+    x = _layer_norm(x, v.pre_ln)
+    if vc.num_layers > 1:
+        for blk in v.blocks[:-1]:
+            x = blk(x, causal=False)
+        pooled = v.blocks[-1].forward_cls(x)[:, 0]
+    else:
+        pooled = v.blocks[0](x, causal=False)[:, 0]
+    pooled = _layer_norm(pooled, v.post_ln)
+    emb = v.projection(pooled)
+    return l2_normalize(emb) if normalize else emb
+
+
+def encode_text(model: CLIP, input_ids: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """Token ids [B, S] -> [B, proj_dim], pooled at the first EOS token."""
+    t = model.text
+    tc = t.cfg
+    B, S = input_ids.shape
+    x = (t.token_embedding[input_ids] + t.position_embedding[:S]).to(model.dtype)
+    # HF CLIP pools at the first EOS token (pad == EOS for CLIP's tokenizer);
+    # torch.argmax returns the first maximal index
+    eos_pos = torch.argmax((input_ids == tc.eos_token_id).to(torch.int32), dim=-1)
+    if tc.num_layers > 1:
+        for blk in t.blocks[:-1]:
+            x = blk(x, causal=True)
+        pooled = t.blocks[-1].forward_eos(x, eos_pos)[:, 0]
+    else:
+        x = t.blocks[0](x, causal=True)
+        pooled = x[torch.arange(B, device=x.device), eos_pos]
+    pooled = _layer_norm(pooled, t.final_ln)
+    emb = t.projection(pooled)
+    return l2_normalize(emb) if normalize else emb

@@ -1,0 +1,117 @@
+"""int8 full-scan scores: kernel B2, its plain PyTorch version, and the int8
+query quantizer.
+
+``stream_scores_int8`` is the port of ``image_search_tpu/ops/
+score_stream.py::stream_scores_int8`` (Pallas ``_kernel``/``_kernel_pen``).
+On a CUDA tensor it launches ``csrc/score_stream.cu``; on a CPU tensor it runs
+:func:`scores_int8_reference`. The two are bitwise equal, and both are
+bitwise equal to the reference: the int8 dot is an exact integer (every
+partial sum is below 127 * 127 * D < 2^24 for D <= 1040, so an f32 matmul of
+the int8 values is exact too), and the epilogue rounds after every step in
+the reference's order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from image_search_tpu_torch import _build
+
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def quantize_rows_int8(x: torch.Tensor):
+    """[N, D] f32 -> (int8 values, f32 per-row scales), symmetric.
+
+    Same op order as ``parallel/sharded_search.py::quantize_rows_int8`` as the
+    reference's search runs it: amax, ``max(amax, 1e-12) / 127``,
+    ``clip(round(x / scale), -127, 127)`` with half-to-even rounding
+    (``torch.round``, like ``jnp.round``). Compiled, XLA turns the division
+    by the constant 127 into a multiply by its f32 reciprocal (about 4% of
+    scales then differ from a true division by one ulp), and torch's CUDA
+    division by a Python scalar does the same; the multiply is written out
+    so that the CPU and the card give the reference's served scales."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def quantize_queries_int8(x: torch.Tensor):
+    """Raw [B, D] f32 queries -> (int8 values, f32 scales) of their
+    l2-normalized form, rounded as the reference's compiled search rounds
+    them (``index/index.py::_search_local``: ``_l2`` then
+    ``quantize_rows_int8``).
+
+    Mathematically ``round((x / n) / scale)``; XLA's simplifier rewrites
+    ``(x / n) / scale`` into ``x / (n * scale)``, which rounds differently
+    near .5 (about 0.4% of elements of small-integer queries, where exact
+    ties are common). The port computes that form so that its int8 answers
+    are the reference's bitwise."""
+    n = torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
+    scale = torch.clamp((x / n).abs().amax(dim=-1, keepdim=True), min=1e-12) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x / (n * scale)), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def scores_int8_reference(rows, qi, qs, scales, limit: int, pens=None):
+    """Plain version: [B, N] f32 masked scores."""
+    s = qi.float() @ rows.float().T  # exact integers (see module docstring)
+    s = s * qs[:, None]
+    s = s * scales[None, :]
+    if pens is not None:
+        s = s + pens[None, :]
+    gpos = torch.arange(rows.shape[0], device=rows.device)
+    return torch.where(gpos[None, :] < limit, s, torch.full_like(s, NEG_INF))
+
+
+def _check_cuda_operands(rows, qi, qs, scales, pens):
+    dev = rows.device
+    n, d = rows.shape
+    b = qi.shape[0]
+    want = [
+        ("rows", rows, torch.int8, (n, d)),
+        ("qi", qi, torch.int8, (b, d)),
+        ("qs", qs, torch.float32, (b,)),
+        ("scales", scales, torch.float32, (n,)),
+    ]
+    if pens is not None:
+        want.append(("pens", pens, torch.float32, (n,)))
+    for name, t, dtype, shape in want:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"score kernel: {name} must be a contiguous {dtype} {shape} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    if d % 4:
+        raise ValueError(f"score kernel: D={d} must be a multiple of 4")
+    if b * d > 232448:
+        raise ValueError(f"score kernel: {b} queries x D={d} exceed shared memory")
+
+
+def stream_scores_int8(rows, qi, qs, scales, limit: int, pens=None):
+    """Masked cosine scores [B, N] f32 in one pass over an int8 slab.
+
+    rows [N, D] int8, qi [B, D] int8, qs [B] f32, scales [N] f32, pens [N] f32
+    additive penalties (0 live, NEG_INF tombstoned) or None; rows at
+    position >= ``limit`` score NEG_INF."""
+    if rows.device.type == "cpu":
+        return scores_int8_reference(rows, qi, qs, scales, limit, pens)
+    if rows.device.type != "cuda":
+        raise ValueError(f"stream_scores_int8: no route for device {rows.device}")
+    _check_cuda_operands(rows, qi, qs, scales, pens)
+    n, d = rows.shape
+    b = qi.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=rows.device)
+    limit = max(-(2**31), min(int(limit), 2**31 - 1))
+    rc = _build.lib().isx_score_int8(
+        rows.data_ptr(), qi.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+        None if pens is None else pens.data_ptr(), out.data_ptr(),
+        n, d, b, limit, _build.stream_handle(rows.device),
+    )
+    _build.check(rc, "score kernel launch")
+    stream_scores_int8.launches += 1
+    return out
+
+
+stream_scores_int8.launches = 0

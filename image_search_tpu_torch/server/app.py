@@ -1,0 +1,153 @@
+"""HTTP server of the port, on the standard library's ``ThreadingHTTPServer``.
+
+The reference's surface for the main path (``image_search_tpu/server/
+app.py``), with byte-identical bodies for the same engine results:
+
+- ``POST /search`` -- body ``{"q": str, "referenced_images": [str]}``,
+  response ``{"images": [{"id", "image_path", "score"}]}``;
+- ``GET /scan`` -- runs the ingest (one at a time) and answers when it is done;
+- ``GET /health`` and ``GET /media/<path>`` (the photo directory).
+
+``/search_image``, ``/remove``, ``/duplicates``, ``/metrics``, the web client
+and micro-batching are not ported yet. Run it with the reference's flags::
+
+    python -m image_search_tpu_torch.server.app --media-dir ~/Pictures \\
+        --index-dir ./index --index-quantize int8 [--device cuda]
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import mimetypes
+import os
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from image_search_tpu_torch import _jaxfree
+from image_search_tpu_torch.server.engine import MEDIA_PREFIX, SearchEngine
+
+log = logging.getLogger(__name__)
+
+MAX_BODY = 16 * 1024 * 1024
+
+
+def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # route access logs to logging
+            log.debug("%s " + fmt, self.address_string(), *args)
+
+        def _send(self, status: int, body: bytes, ctype: str = "application/json"):
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _json(self, status: int, obj) -> None:
+            self._send(status, json.dumps(obj).encode())
+
+        def do_GET(self):
+            path = urllib.parse.urlsplit(self.path).path
+            if path == "/scan":
+                return self._scan()
+            if path == "/health":
+                return self._json(
+                    200, {"status": "ok", "model": engine.cfg.name, "corpus": len(engine.index)}
+                )
+            if path.startswith("/" + MEDIA_PREFIX):
+                return self._media(urllib.parse.unquote(path[1:]))
+            self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            path = urllib.parse.urlsplit(self.path).path
+            n = int(self.headers.get("Content-Length") or 0)
+            if n > MAX_BODY:
+                return self._json(413, {"error": "body too large"})
+            body = self.rfile.read(n)
+            if path != "/search":
+                return self._json(404, {"error": "not found"})
+            try:
+                params = _jaxfree.wire.SearchParams.from_json(json.loads(body))
+            except Exception:
+                return self._json(400, {"error": "invalid SearchParams"})
+            try:
+                images = engine.search(params.q, params.referenced_images)
+            except Exception:
+                log.exception("search failed")
+                return self._send(500, b"")
+            self._send(200, engine.render_images_json(images))
+
+        def _scan(self):
+            with scan_lock:  # single-flight: concurrent scans would double-decode
+                try:
+                    stats = engine.scan()
+                except Exception:
+                    log.exception("Error embedding images")
+                    return self._send(200, b"")  # the reference always answers 200
+            self._json(
+                200,
+                {
+                    "found": stats.found,
+                    "embedded": stats.embedded,
+                    "skipped_existing": stats.skipped_existing,
+                    "decode_failures": stats.decode_failures,
+                    "pruned": stats.pruned,
+                    "seconds": round(stats.seconds, 3),
+                },
+            )
+
+        def _media(self, media_path: str):
+            abs_path = engine.to_abs_path(media_path)
+            if abs_path is None or not os.path.isfile(abs_path):
+                return self._json(404, {"error": "not found"})
+            with open(abs_path, "rb") as f:
+                data = f.read()
+            ctype = mimetypes.guess_type(abs_path)[0] or "application/octet-stream"
+            self._send(200, data, ctype)
+
+    return Handler
+
+
+def make_server(engine: SearchEngine, addr: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
+    """A bound server for ``engine`` (port 0 picks a free port); call
+    ``serve_forever`` on it, and ``shutdown`` + ``server_close`` to stop."""
+    server = ThreadingHTTPServer((addr, port), _handler_class(engine, threading.Lock()))
+    server.daemon_threads = True
+    return server
+
+
+def build_parser():
+    p = _jaxfree.args.build_parser()
+    p.prog = "python -m image_search_tpu_torch.server.app"
+    p.add_argument("--device", default="cuda", help="torch device to serve on (default cuda)")
+    return p
+
+
+def parse_args(argv=None):
+    """-> (the reference's ServerArgs, device)."""
+    ns = vars(build_parser().parse_args(argv))
+    device = ns.pop("device")
+    return _jaxfree.args.ServerArgs(**ns), device
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(
+        level=os.environ.get("LOG_LEVEL", "INFO"),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    args, device = parse_args(argv)
+    engine = SearchEngine(args, device=device)
+    server = make_server(engine, args.addr, args.port)
+    log.info("serving on http://%s:%d (media: %s)", args.addr, server.server_port, engine.media_dir)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

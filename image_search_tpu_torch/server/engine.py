@@ -1,0 +1,269 @@
+"""SearchEngine: model + tokenizer + index + scan pipeline on one device.
+
+Port of ``image_search_tpu/server/engine.py::SearchEngine`` for the main
+path: load the checkpoint (or seeded random demo weights), scan a media
+directory into the index, and answer text searches with optional Rocchio
+feedback through one batched program (the reference's non-two-stage branch),
+rendering the reference's wire format byte for byte.
+
+The engine runs on an explicit device (default ``cuda``). Flags for what is
+not ported yet raise at construction: the two-stage and approximate searches,
+meshes, bf16 index rows, micro-batching, the thumbnail cache, pruning on
+scan, ``--from-hf`` and the profiler.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import urllib.parse
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from image_search_tpu.config import get_config
+from image_search_tpu.tokenizer import CLIPBPETokenizer, HashTokenizer
+from image_search_tpu_torch import _jaxfree, check_precision
+from image_search_tpu_torch.index.index import NEG_INF, EmbeddingStore, VectorIndex
+from image_search_tpu_torch.ingest.pipeline import ScanStats, scan_directory
+from image_search_tpu_torch.models.convert import build_model, init_params, load_checkpoint, params_from_jax
+from image_search_tpu_torch.models.embedder import ClipEmbedder
+
+log = logging.getLogger(__name__)
+
+ServerArgs = _jaxfree.args.ServerArgs
+
+MEDIA_PREFIX = "media/"
+DEMO_SEED = 0
+
+
+def unsupported_flags(args) -> List[str]:
+    """Reference flags this port cannot serve yet, as they were given."""
+    out = []
+    if args.search_twostage:
+        out.append("--search-twostage")
+    if args.search_approx:
+        out.append("--search-approx")
+    if args.mesh_data is not None or args.mesh_model != 1:
+        out.append("--mesh-data/--mesh-model")
+    if args.index_quantize == "bfloat16":
+        out.append("--index-quantize bfloat16")
+    if args.batch_window_ms > 0:
+        out.append("--batch-window-ms")
+    if args.thumb_cache:
+        out.append("--thumb-cache")
+    if args.prune_on_scan:
+        out.append("--prune-on-scan")
+    if args.from_hf:
+        out.append("--from-hf")
+    if args.profiler_port is not None:
+        out.append("--profiler-port")
+    return out
+
+
+class SearchEngine:
+    WIRE_CACHE_MAX = 1_000_000  # memo entries before a wholesale clear
+
+    def __init__(self, args, device="cuda"):
+        bad = unsupported_flags(args)
+        if bad:
+            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+        check_precision()
+        self.args = args
+        self.media_dir = os.path.normpath(os.path.abspath(args.expanded_media_dir()))
+        self.cfg, model = self._load_model()
+        self.embedder = ClipEmbedder(
+            model, tokenizer=self._load_tokenizer(), preprocess_mode=args.preprocess_mode
+        )
+        self._text_cache: dict = {}
+        self._text_lock = threading.Lock()
+        self._wire_cache: dict = {}
+        self._frag_cache: dict = {}
+        store = EmbeddingStore(args.index_dir, self.cfg.projection_dim)
+        self._excluded = store.excluded_paths()
+        self.index = VectorIndex(
+            self.cfg.projection_dim, device=self.device, store=store,
+            quantize=args.index_quantize, capacity=args.index_capacity,
+        )
+        log.info(
+            "engine ready: model=%s dim=%d corpus=%d device=%s",
+            self.cfg.name, self.cfg.projection_dim, len(self.index), self.device,
+        )
+
+    # -- construction ---------------------------------------------------------
+
+    def _compute_dtype(self) -> torch.dtype:
+        choice = self.args.compute_dtype
+        if choice == "auto":
+            return torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        if choice == "float32" and self.device.type == "cuda":
+            raise NotImplementedError("not ported yet: --compute-dtype float32 on cuda (bf16 kernels)")
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[choice]
+
+    def _load_model(self):
+        dtype = self._compute_dtype()
+        path = self.args.model_weights
+        if os.path.exists(path):
+            params, cfg = load_checkpoint(path)
+            log.info("loaded checkpoint %s (%s)", path, cfg.name)
+            return cfg, build_model(cfg, params_from_jax(params, cfg), self.device, dtype)
+        cfg = get_config(self.args.model)
+        log.warning(
+            "checkpoint %s not found — using RANDOM %s weights (demo mode; "
+            "searches will not be semantic)", path, cfg.name,
+        )
+        gen = torch.Generator(device=self.device).manual_seed(DEMO_SEED)
+        return cfg, build_model(cfg, init_params(cfg, gen, self.device, dtype), self.device, dtype)
+
+    def _load_tokenizer(self):
+        d = self.args.tokenizer_dir
+        if d and os.path.exists(os.path.join(d, "vocab.json")):
+            log.info("loaded BPE tokenizer from %s", d)
+            return CLIPBPETokenizer.from_dir(d, self.cfg.text.context_length)
+        if d:
+            log.warning("tokenizer dir %s missing vocab.json", d)
+        log.warning("no tokenizer files — using deterministic hash tokenizer")
+        return HashTokenizer(
+            self.cfg.text.vocab_size, self.cfg.text.context_length,
+            eos_id=self.cfg.text.eos_token_id,
+        )
+
+    # -- path mapping (media/ URL <-> absolute path) ----------------------------
+
+    def to_abs_path(self, media_path: str) -> Optional[str]:
+        """'media/x/y.jpg' -> '<media_dir>/x/y.jpg'; rejects non-media/ paths
+        and directory traversal. Paths arrive verbatim (no unquoting)."""
+        if not media_path.startswith(MEDIA_PREFIX):
+            return None
+        abs_path = os.path.normpath(os.path.join(self.media_dir, media_path[len(MEDIA_PREFIX):]))
+        if not abs_path.startswith(os.path.normpath(self.media_dir) + os.sep):
+            return None
+        return abs_path
+
+    def _abs_candidates(self, media_path: str) -> List[str]:
+        """The raw string first, then its urldecoded form (a client may echo
+        the urlencoded ``id`` instead of ``image_path``)."""
+        out: List[str] = []
+        abs_raw = self.to_abs_path(media_path)
+        if abs_raw is not None:
+            out.append(abs_raw)
+        unquoted = urllib.parse.unquote(media_path)
+        if unquoted != media_path:
+            abs_unq = self.to_abs_path(unquoted)
+            if abs_unq is not None and abs_unq not in out:
+                out.append(abs_unq)
+        return out
+
+    def _resolve_selection(self, media_path: str) -> Optional[str]:
+        cands = self._abs_candidates(media_path)
+        for c in cands:
+            if self.index.has_path(c):
+                return c
+        return cands[0] if cands else None
+
+    def to_media_path(self, abs_path: str) -> str:
+        rel = os.path.relpath(abs_path, os.path.normpath(self.media_dir))
+        return MEDIA_PREFIX + rel.replace(os.sep, "/")
+
+    # -- operations -------------------------------------------------------------
+
+    def search(self, query: str, referenced_images: Sequence[str] = (), k: Optional[int] = None):
+        """The ``web_search_text`` flow (search.rs:20-102): a batch of one."""
+        return self.search_many([query], [referenced_images], k or self.args.k)[0]
+
+    def search_many(self, queries, selections=None, k: Optional[int] = None):
+        """B searches -- plain and Rocchio feedback alike -- as one text-tower
+        batch and one index pass. Returns result lists in request order."""
+        k = k or self.args.k
+        queries = list(queries)
+        sel_lists = [
+            [p for p in (self._resolve_selection(m) for m in sel) if p is not None]
+            for sel in (selections or [()] * len(queries))
+        ]
+        local = {}
+        for q in queries:
+            hit = self._cache_get(q)
+            if hit is not None:
+                local[q] = hit
+        misses = list(dict.fromkeys(q for q in queries if q not in local))
+        if misses:
+            embs = self.embedder.embed_texts_device(misses)  # stays on the device
+            for b, q in enumerate(misses):
+                local[q] = embs[b]
+                self._cache_put(q, embs[b])
+        q_mat = torch.stack([local[q].float() for q in queries])
+        # the batched feedback program even for all-plain batches: an empty
+        # selection IS the plain search, bitwise
+        scores, idx = self.index.search_with_feedback_batch(q_mat, sel_lists, k)
+        return [self._format_results(scores[b], idx[b]) for b in range(len(queries))]
+
+    def _wire_row(self, row: int) -> dict:
+        """Memoized ``{"id", "image_path"}`` for an index row (id = urlencoded
+        path); rows are append-only, so entries never go stale."""
+        d = self._wire_cache.get(row)
+        if d is None:
+            media = self.to_media_path(self.index.paths[row])
+            d = {"id": urllib.parse.quote(media, safe=""), "image_path": media}
+            if len(self._wire_cache) >= self.WIRE_CACHE_MAX:
+                self._wire_cache.clear()
+            self._wire_cache[row] = d
+        return d
+
+    def render_images_json(self, images) -> bytes:
+        """``{"images": [...]}`` body, byte-identical to ``json.dumps`` (and to
+        the reference's renderer), with the id/path escaping memoized."""
+        cache = self._frag_cache
+        parts = []
+        for d in images:
+            i = d["id"]
+            frag = cache.get(i)
+            if frag is None:
+                frag = json.dumps({"id": i, "image_path": d["image_path"]})[:-1]
+                if len(cache) >= self.WIRE_CACHE_MAX:
+                    cache.clear()
+                cache[i] = frag
+            parts.append(f'{frag}, "score": {d["score"]!r}}}')
+        return ('{"images": [%s]}' % ", ".join(parts)).encode()
+
+    def _format_results(self, scores_row, idx_row):
+        idx_np = np.asarray(idx_row).reshape(-1)
+        sc_np = np.asarray(scores_row).reshape(-1)
+        # sentinel rows (k beyond the live corpus, tombstones) are never served
+        keep = sc_np > NEG_INF / 2
+        out = []
+        for row, score in zip(idx_np[keep], sc_np[keep]):
+            d = dict(self._wire_row(int(row)))
+            d["score"] = float(score)
+            out.append(d)
+        return out
+
+    # Text-tower output per query string, least-recently-used eviction.
+    _TEXT_CACHE_CAP = 512
+
+    def _cache_get(self, query: str):
+        with self._text_lock:
+            hit = self._text_cache.pop(query, None)
+            if hit is not None:
+                self._text_cache[query] = hit  # reinsert: LRU refresh
+        return hit
+
+    def _cache_put(self, query: str, emb) -> None:
+        with self._text_lock:
+            if len(self._text_cache) >= self._TEXT_CACHE_CAP:
+                self._text_cache.pop(next(iter(self._text_cache)), None)
+            self._text_cache[query] = emb
+
+    def scan(self) -> ScanStats:
+        """The ``GET /scan`` ingest (search.rs:104-126). Paths the store
+        marks excluded (removed by the user) are not re-embedded."""
+        return scan_directory(
+            self.embedder, self.index, self.media_dir,
+            chunk_size=self.args.chunk_size, decode_workers=self.args.decode_workers,
+            skip_paths=self._excluded,
+        )

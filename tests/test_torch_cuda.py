@@ -1,0 +1,115 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version, and the towers' launches through them.
+
+Needs an NVIDIA GPU and nvcc: every test here is marked ``cuda`` and skips
+(decided in a fixture, at run time) where ``torch.cuda.is_available()`` is
+false. This file imports no jax, so it also runs on a machine without it;
+there, skip tests/conftest.py (which imports jax):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from image_search_tpu.config import CLIPConfig, TextConfig, VisionConfig
+from image_search_tpu_torch.ops.attention import attention_reference, fused_attention
+from image_search_tpu_torch.ops.score_stream import (
+    NEG_INF,
+    quantize_rows_int8,
+    scores_int8_reference,
+    stream_scores_int8,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False)])
+def test_attention_kernel_matches_plain(dev, B, S, H, causal):
+    g = torch.Generator(device=dev).manual_seed(B * S)
+    D = H * 64
+    qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).bfloat16()
+    q = qkv[..., :D] * 0.125
+    k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    n0 = fused_attention.launches
+    got = fused_attention(q, k, v, H, causal)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == n0 + 1
+    split = lambda t: t.reshape(B, S, H, 64)
+    want = attention_reference(split(q), split(k), split(v), causal).reshape(B, S, D)
+    want32 = attention_reference(split(q).float(), split(k).float(), split(v).float(), causal).reshape(B, S, D)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert F.cosine_similarity(got.float().reshape(-1, 64), want32.reshape(-1, 64), dim=-1).min() >= 0.9999
+
+
+def test_attention_kernel_rejects_what_it_cannot_take(dev):
+    x = torch.zeros(1, 8, 128, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_attention(x, x, x, 2)
+    y = torch.zeros(1, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        fused_attention(y, y, y, 4)  # Hd = 16
+
+
+@pytest.mark.parametrize("N,D,B,pens", [(100_003, 768, 1, False), (100_003, 768, 8, True), (4099, 768, 32, True), (777, 12, 3, True)])
+def test_score_kernel_bitwise_equals_plain(dev, N, D, B, pens):
+    g = torch.Generator(device=dev).manual_seed(N + B)
+    rows, scales = quantize_rows_int8(F.normalize(torch.randn(N, D, generator=g, device=dev), dim=-1))
+    qi, qs = quantize_rows_int8(F.normalize(torch.randn(B, D, generator=g, device=dev), dim=-1))
+    pen = None
+    if pens:
+        pen = torch.zeros(N, device=dev)
+        pen[torch.randint(0, N, (N // 50 + 1,), generator=g, device=dev)] = NEG_INF
+    for limit in (N, N - 3, 0):
+        n0 = stream_scores_int8.launches
+        got = stream_scores_int8(rows, qi, qs, scales, limit, pen)
+        torch.cuda.synchronize()
+        assert stream_scores_int8.launches == n0 + 1
+        assert torch.equal(got, scores_int8_reference(rows, qi, qs, scales, limit, pen))
+
+
+def test_score_kernel_rejects_what_it_cannot_take(dev):
+    rows = torch.zeros(8, 6, dtype=torch.int8, device=dev)
+    s = torch.ones(8, device=dev)
+    q = torch.zeros(1, 6, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        stream_scores_int8(rows, q, torch.ones(1, device=dev), s, 8)
+    with pytest.raises(ValueError, match="int8"):
+        stream_scores_int8(rows.float(), q, torch.ones(1, device=dev), s, 8)
+
+
+def test_towers_launch_the_kernel_once_per_layer_but_the_last(dev):
+    """A narrow CLIP whose heads are 64 wide: every layer but the CLS/EOS
+    one goes through the kernel, and the bf16 card output stays close to
+    the f32 CPU forward of the same weights."""
+    from image_search_tpu_torch.models.clip import encode_image, encode_text
+    from image_search_tpu_torch.models.convert import build_model, init_params
+
+    cfg = CLIPConfig(
+        name="narrow-64",
+        text=TextConfig(hidden_size=128, num_layers=3, num_heads=2, vocab_size=300, context_length=20, eos_token_id=299),
+        vision=VisionConfig(hidden_size=128, num_layers=4, num_heads=2, image_size=56, patch_size=14),
+        projection_dim=32,
+    )
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    model = build_model(cfg, state, dev, torch.bfloat16)
+    cpu = build_model(cfg, {k: t.float().cpu() for k, t in state.items()}, "cpu", torch.float32)
+    px = torch.randn(3, 56, 56, 3)
+    ids = torch.randint(0, 299, (3, 20))
+    ids[:, 9:] = 299
+    n0 = fused_attention.launches
+    img = encode_image(model, px.to(dev))
+    n1 = fused_attention.launches
+    txt = encode_text(model, ids.to(dev))
+    n2 = fused_attention.launches
+    assert (n1 - n0, n2 - n1) == (3, 2)
+    assert F.cosine_similarity(img.float().cpu(), encode_image(cpu, px), dim=-1).min() >= 0.99
+    assert F.cosine_similarity(txt.float().cpu(), encode_text(cpu, ids), dim=-1).min() >= 0.99

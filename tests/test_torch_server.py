@@ -1,0 +1,227 @@
+"""The port's HTTP server against the reference's SearchEngine.
+
+One tiny checkpoint (written by the reference's ``save_checkpoint``) and one
+tiny PIL-written PNG corpus feed both; /scan must embed the same photos and
+/search must return the same photos in the same order with scores within
+1e-5, with and without ``referenced_images``. The photos' short side is the
+tiny model's 28 px input, so the resample is the identity and exact in both
+packages (test_torch_preprocess.py), and what is compared is the rest of the
+path: decode, towers, index, Rocchio feedback, ranking and the wire format.
+"""
+
+import json
+import os
+import threading
+import urllib.error
+import urllib.parse
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from image_search_tpu.config import tiny_test_config
+from image_search_tpu.models import init_params as jax_init_params
+from image_search_tpu.models.convert import save_checkpoint
+from image_search_tpu.server.args import ServerArgs as RefArgs
+from image_search_tpu.server.engine import SearchEngine as RefEngine
+from image_search_tpu_torch.ingest.decode import DecodePool, decode_image, read_bmp24, write_bmp24
+from image_search_tpu_torch.server.app import make_server, parse_args
+from image_search_tpu_torch.server.engine import SearchEngine, ServerArgs
+
+SIZES = [(28, 28), (28, 45), (60, 28), (28, 33), (28, 28), (90, 28), (28, 70), (41, 28)]
+
+
+def _corpus(media):
+    rng = np.random.default_rng(11)
+    os.makedirs(os.path.join(media, "sub dir"), exist_ok=True)
+    for i, (h, w) in enumerate(SIZES):
+        arr = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        folder = os.path.join(media, "sub dir") if i % 3 == 0 else media
+        Image.fromarray(arr).save(os.path.join(folder, f"photo_{i}.png"))
+    with open(os.path.join(media, "broken.png"), "wb") as f:
+        f.write(b"not a png")
+
+
+@pytest.fixture(scope="module")
+def servers(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_srv")
+    media = str(root / "pics")
+    _corpus(media)
+    cfg = tiny_test_config()
+    ckpt = str(root / "tiny.safetensors")
+    save_checkpoint(ckpt, jax_init_params(jax.random.key(3), cfg), cfg)
+    common = dict(model_weights=ckpt, media_dir=media, chunk_size=3, k=50)
+    ref = RefEngine(RefArgs(index_dir=str(root / "ref_idx"), **common))
+    port = SearchEngine(ServerArgs(index_dir=str(root / "port_idx"), **common), device="cpu")
+    server = make_server(port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield ref, port, f"http://127.0.0.1:{server.server_port}"
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def _request(method, url, body=None, raw=None):
+    data = raw if raw is not None else (None if body is None else json.dumps(body).encode())
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+@pytest.fixture(scope="module")
+def scanned(servers):
+    ref, port, base = servers
+    ref_stats = ref.scan()
+    status, body = _request("GET", base + "/scan")
+    assert status == 200
+    return ref_stats, json.loads(body)
+
+
+def test_scan_embeds_the_same_photos(servers, scanned):
+    ref, port, _ = servers
+    ref_stats, stats = scanned
+    assert stats["embedded"] == ref_stats.embedded == len(SIZES)
+    assert stats["decode_failures"] == ref_stats.decode_failures == 1
+    assert stats["found"] == ref_stats.found == len(SIZES) + 1
+    assert sorted(port.index.paths) == sorted(ref.index.paths)
+    np.testing.assert_allclose(
+        port.index.get_raw_embeddings(ref.index.paths), ref.index.get_raw_embeddings(ref.index.paths),
+        atol=1e-5,
+    )
+
+
+@pytest.mark.parametrize("query", ["a dark square", "red", ""])
+@pytest.mark.parametrize("n_marked", [0, 1, 2])
+def test_search_matches_reference(servers, scanned, query, n_marked):
+    ref, port, base = servers
+    ref_plain = ref.search(query)
+    marked = [d["image_path"] for d in ref_plain[1 : 1 + n_marked]]
+    want = ref.search(query, marked)
+    status, body = _request("POST", base + "/search", {"q": query, "referenced_images": marked})
+    assert status == 200
+    got = json.loads(body)["images"]
+    assert [d["image_path"] for d in got] == [d["image_path"] for d in want]
+    assert [d["id"] for d in got] == [d["id"] for d in want]
+    np.testing.assert_allclose([d["score"] for d in got], [d["score"] for d in want], atol=1e-5, rtol=0)
+    # the body is exactly what the renderer makes of those rows
+    assert body == port.render_images_json(got)
+
+
+def test_render_is_byte_identical_to_reference(servers, scanned):
+    ref, port, _ = servers
+    rows = ref.search("anything", [])
+    rows.append({"id": urllib.parse.quote('media/é "x".png', safe=""), "image_path": 'media/é "x".png', "score": 0.1})
+    assert port.render_images_json(rows) == ref.render_images_json(rows)
+    assert json.loads(port.render_images_json(rows)) == {"images": rows}
+
+
+def test_urlencoded_id_resolves_as_selection(servers, scanned):
+    ref, port, base = servers
+    plain = ref.search("q", [])
+    by_path = [plain[0]["image_path"]]
+    by_id = [plain[0]["id"]]
+    a = _request("POST", base + "/search", {"q": "q", "referenced_images": by_path})[1]
+    b = _request("POST", base + "/search", {"q": "q", "referenced_images": by_id})[1]
+    assert a == b
+
+
+def test_health_media_and_errors(servers, scanned):
+    _, port, base = servers
+    status, body = _request("GET", base + "/health")
+    assert status == 200 and json.loads(body) == {"status": "ok", "model": "clip-tiny-test", "corpus": len(SIZES)}
+    path = port.search("x")[0]["image_path"]
+    status, data = _request("GET", base + "/" + urllib.parse.quote(path))
+    assert status == 200 and data[:4] == b"\x89PNG"
+    assert _request("GET", base + "/media/../tiny.safetensors")[0] == 404
+    assert _request("GET", base + "/media/missing.png")[0] == 404
+    assert _request("POST", base + "/search", raw=b"{not json")[0] == 400
+    assert _request("POST", base + "/search", {"q": 3})[0] == 400
+    assert _request("GET", base + "/nope")[0] == 404
+
+
+def test_rescan_is_idempotent(servers, scanned):
+    _, _, base = servers
+    status, body = _request("GET", base + "/scan")
+    stats = json.loads(body)
+    assert status == 200 and stats["embedded"] == 0 and stats["skipped_existing"] == len(SIZES)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--search-twostage"],
+        ["--search-approx"],
+        ["--mesh-data", "2"],
+        ["--mesh-model", "2"],
+        ["--index-quantize", "bfloat16"],
+        ["--batch-window-ms", "5"],
+        ["--thumb-cache", "/tmp/thumbs"],
+        ["--prune-on-scan"],
+        ["--from-hf", "auto"],
+        ["--profiler-port", "9999"],
+    ],
+)
+def test_unported_flags_raise_at_startup(flags):
+    args, device = parse_args(flags + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        SearchEngine(args, device=device)
+
+
+def test_parse_args_keeps_reference_flags():
+    args, device = parse_args(["-m", "/photos", "--index-quantize", "int8", "--k", "7"])
+    assert device == "cuda" and args.media_dir == "/photos"
+    assert args.index_quantize == "int8" and args.k == 7 and isinstance(args, ServerArgs)
+
+
+def test_cuda_device_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    args = ServerArgs(media_dir=str(tmp_path), index_dir=str(tmp_path / "i"), model="clip-tiny-test")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SearchEngine(args, device="cuda")
+
+
+@pytest.mark.parametrize("h,w", [(5, 7), (16, 16), (3, 1), (31, 2)])
+def test_bmp_reader_matches_pil(tmp_path, h, w):
+    rng = np.random.default_rng(h * w)
+    arr = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    path = str(tmp_path / "x.bmp")
+    write_bmp24(path, arr)
+    with open(path, "rb") as f:
+        np.testing.assert_array_equal(read_bmp24(f.read()), arr)
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(np.asarray(im.convert("RGB")), arr)
+    # PIL's top-down and bottom-up BMPs read the same
+    Image.fromarray(arr).save(str(tmp_path / "pil.bmp"))
+    with open(str(tmp_path / "pil.bmp"), "rb") as f:
+        np.testing.assert_array_equal(read_bmp24(f.read()), arr)
+
+
+def test_bmp_reader_rejects_other_files():
+    with pytest.raises(ValueError):
+        read_bmp24(b"BM" + b"\0" * 10)
+    with pytest.raises(ValueError):
+        read_bmp24(b"\x89PNG" + b"\0" * 60)
+
+
+def test_decode_pool_skips_failures(tmp_path):
+    good = str(tmp_path / "a.bmp")
+    write_bmp24(good, np.zeros((4, 6, 3), np.uint8))
+    bad = str(tmp_path / "b.jpg")
+    with open(bad, "wb") as f:
+        f.write(b"garbage")
+    assert decode_image(bad) is None
+    pool = DecodePool(workers=2)
+    try:
+        kept, images = pool.submit_batch([good, bad, str(tmp_path / "missing.png")]).result(timeout=60)
+    finally:
+        pool.close()
+    assert kept == [good] and images[0].shape == (4, 6, 3)
