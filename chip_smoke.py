@@ -10,17 +10,28 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
 1. environment: the card's name and power limit, optional packages, the
    matmul-precision policy (no TF32);
 2. build: compile ``image_search_tpu_torch/csrc/*.cu`` with nvcc;
-3. each CUDA kernel against its plain PyTorch version at the main path's
-   shapes, on the card, with CUDA-event times for both;
+3. each CUDA kernel against its plain PyTorch version at the main paths'
+   shapes, on the card, with CUDA-event times for both, the least time the
+   card could take for the same work, and the time of one PyTorch call that
+   computes the same function where there is one: attention (B1), int8
+   scores at B=1, 8 and the legacy duplicate scan's 1024 (B2), the block-pair
+   mask at 262,144 x 262,144 rows, the certified route's one call, and at
+   16,384 x 262,144 from row block 512 (B3), and values at 65,536 x
+   1,048,576 (B4);
 4. ViT-L/14 at full width (seeded random bf16 weights): preprocess + vision
    tower at B=160 and the text tower at B=8 through the attention kernel,
    checked against the same weights' f32 forward on the CPU, and img/s;
 5. the HTTP server on 64 synthetic BMP photos with an int8 index: /scan,
    /search with and without Rocchio feedback (checked against the plain
-   scoring of the same index), /health.
+   scoring of the same index), /health;
+6. GET /duplicates on the same server by its three routes: legacy on the
+   photos plus byte-identical copies (groups against a brute-force f32 pair
+   set), certified on 262,144 concentrated 768-d rows through ?async=1 and
+   ?job= (pairs against a brute-force f32 oracle), approximate on 1,048,576
+   flat rows (every planted pair found, every emitted pair's score checked).
 
 The second-to-last line is a JSON object describing every kernel of the
-path; the last line is ``{"ok": true, "device": {...}}``. Without a GPU the
+paths; the last line is ``{"ok": true, "device": {...}}``. Without a GPU the
 script exits non-zero before any phase and prints no result.
 """
 
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -41,6 +53,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ATTN_MAX_ABS = 2e-2  # bf16 kernel vs bf16 plain version (output values are O(1))
 ATTN_MIN_COS = 0.9999  # per head vector, bf16 kernel vs f32 plain version
 TOWER_MIN_COS = 0.99  # bf16 on the card vs f32 on the CPU over 24 layers
+VALUES_MAX_ABS = 2e-5  # B4 vs its plain version: f32 sums of 65 exact bf16 products in two orders
+MASK_MARGIN = 1e-5  # B3's threshold keeps this far from every block maximum
+BAND = 5e-4  # duplicate-scan guarantee band of tests/test_dupscan.py::check_band
+SCORE_ATOL = 2e-4  # an emitted pair's score vs its own f32 dot
+DIM = 768  # ViT-L/14 embeddings
+CERT_ROWS = 262_144  # the certified route's corpus: over the engine's 200,000-row cut
+APPROX_ROWS = 1_048_576  # the approximate route's corpus: over its 1,000,000-row cut
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): the bounds below
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 
 
 class SmokeFailure(RuntimeError):
@@ -84,10 +108,36 @@ def ab_ms(torch, plain, kernel, iters: int):
     return statistics.median(k), statistics.median(p)
 
 
+def bound(nbytes: float, ops: float, peak: float):
+    """(least ms the card could take, what binds it): each input read once
+    and each output written once at the HBM rate, against the operations at
+    the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def upper_block_pairs(r: int, n: int, row_block0: int) -> int:
+    """Block pairs on or above the diagonal: what B3 and B4 compute."""
+    ncb = n // 128
+    return sum(max(ncb - (row_block0 + rb), 0) for rb in range(r // 128))
+
+
+def threshold_between_maxima(torch, m, q: float) -> float:
+    """The first midpoint at or above quantile q of the finite block maxima
+    with no maximum within MASK_MARGIN of it."""
+    v = torch.sort(m[torch.isfinite(m)].flatten()).values
+    ok = torch.nonzero((v[1:] - v[:-1]) > 2 * MASK_MARGIN).flatten()
+    i = int(ok[ok >= int(q * (len(v) - 1))][0])
+    return float((v[i] + v[i + 1]) / 2)
+
+
 def phase_kernels(torch, gen, dev):
     from image_search_tpu_torch.ops.attention import attention_reference, fused_attention
+    from image_search_tpu_torch.ops.blockmax import (
+        blockpair_mask, blockpair_mask_reference, blockpair_values, blockpair_values_reference,
+    )
     from image_search_tpu_torch.ops.score_stream import (
-        NEG_INF, quantize_rows_int8, scores_int8_reference, stream_scores_int8,
+        NEG_INF, query_chunks, quantize_rows_int8, scores_int8_reference, stream_scores_int8,
     )
 
     F = torch.nn.functional
@@ -118,53 +168,132 @@ def phase_kernels(torch, gen, dev):
             lambda: fused_attention(q, k, v, H, causal),
             iters=10,
         )
-        res[("attention", S)] = dict(max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, B=B, S=S, H=H)
+        heads = lambda t: split(t).transpose(1, 2)  # [B, H, S, Hd] views
+        lib_ms = statistics.median(cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal, scale=1.0),
+            iters=10,
+        ))
+        b_ms, b_by = bound(4 * B * S * D * 2, 4 * B * H * S * S * Hd, BF16_FLOP_PER_S)
+        res[("attention", S)] = dict(
+            max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, shape=f"B={B} S={S} H={H} Hd=64 causal={causal}",
+        )
         print(
             f"B1 attention B={B} S={S} H={H} Hd=64 causal={causal}: max_abs_err={err} "
-            f"min_cos_vs_f32={cos} kernel_ms={k_ms} plain_ms={p_ms}"
-            + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
+            f"min_cos_vs_f32={cos} kernel_ms={k_ms} plain_ms={p_ms} sdpa_ms={lib_ms} "
+            f"bound_ms={b_ms} ({b_by})" + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
         )
         del qkv, q, k, v, got, want, want32
 
-    N, D = 1_000_000, 768
-    rows, scales = quantize_rows_int8(F.normalize(torch.randn(N, D, generator=gen, device=dev), dim=-1))
-    pens = torch.zeros(N, device=dev)
-    pens[torch.randint(0, N, (1000,), generator=gen, device=dev)] = NEG_INF
-    limit = N - 12_345
-    for B in (1, 8):
-        qi, qs = quantize_rows_int8(F.normalize(torch.randn(B, D, generator=gen, device=dev), dim=-1))
-        for pen in (None, pens):
-            got = stream_scores_int8(rows, qi, qs, scales, limit, pen)
-            want = scores_int8_reference(rows, qi, qs, scales, limit, pen)
-            check(torch.equal(got, want), f"int8 scores B={B} pens={pen is not None}: not bitwise equal")
-            err = (got - want).abs().max().item()
-            k_ms, p_ms = ab_ms(
-                torch,
-                lambda: scores_int8_reference(rows, qi, qs, scales, limit, pen),
-                lambda: stream_scores_int8(rows, qi, qs, scales, limit, pen),
-                iters=10,
-            )
-            res[("score", B, pen is not None)] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
-            gbs = N * D / (k_ms * 1e-3) / 1e9
-            print(
-                f"B2 int8 scores N={N} D={D} B={B} pens={pen is not None} limit={limit}: "
-                f"bitwise_equal=True kernel_ms={k_ms} ({gbs:.1f} GB/s of rows) plain_ms={p_ms}"
-                + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
-            )
-    del rows, scales, pens
+    D = DIM
+    for N, batches in ((1_000_000, (1, 8)), (65_536, (1024,))):
+        rows, scales = quantize_rows_int8(F.normalize(torch.randn(N, D, generator=gen, device=dev), dim=-1))
+        pens = torch.zeros(N, device=dev)
+        pens[torch.randint(0, N, (1000,), generator=gen, device=dev)] = NEG_INF
+        limit = N - 12_345
+        for B in batches:
+            qi, qs = quantize_rows_int8(F.normalize(torch.randn(B, D, generator=gen, device=dev), dim=-1))
+            for pen in (None, pens):
+                n0 = stream_scores_int8.launches
+                got = stream_scores_int8(rows, qi, qs, scales, limit, pen)
+                n_launch = stream_scores_int8.launches - n0
+                want = scores_int8_reference(rows, qi, qs, scales, limit, pen)
+                check(n_launch == len(query_chunks(B, D)), f"int8 scores B={B}: {n_launch} launches")
+                check(torch.equal(got, want), f"int8 scores B={B} pens={pen is not None}: not bitwise equal")
+                err = (got - want).abs().max().item()
+                k_ms, p_ms = ab_ms(
+                    torch,
+                    lambda: scores_int8_reference(rows, qi, qs, scales, limit, pen),
+                    lambda: stream_scores_int8(rows, qi, qs, scales, limit, pen),
+                    iters=10,
+                )
+                nbytes = N * D + B * D + 4 * B + 4 * N + 4 * B * N + (4 * N if pen is not None else 0)
+                b_ms, b_by = bound(nbytes, 2 * B * N * D, INT8_OP_PER_S)
+                # the integer product alone (no scales, no mask): it does less than
+                # B2, and needs more than 16 queries
+                lib_ms = None
+                if B > 16 and pen is None:
+                    lib_ms = statistics.median(cuda_ms(torch, lambda: torch._int_mm(qi, rows.t()), iters=10))
+                res[("score", B, pen is not None)] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                    bound_by=b_by, shape=f"N={N} D={D} B={B} pens={pen is not None}",
+                )
+                gbs = N * D / (k_ms * 1e-3) / 1e9
+                print(
+                    f"B2 int8 scores N={N} D={D} B={B} pens={pen is not None} limit={limit}: "
+                    f"bitwise_equal=True launches={n_launch} kernel_ms={k_ms} ({gbs:.1f} GB/s of rows) "
+                    f"plain_ms={p_ms} int_mm_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+                    + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
+                )
+        del rows, scales, pens, got, want
     torch.cuda.empty_cache()
+
+    # B3 and B4 on augmented sketches (64 dims + the residual norm): B3 at the
+    # certified route's one call (all 262,144 rows against themselves), and
+    # again on a row slab with a nonzero row_block0; B4 at the approximate
+    # route's first call
+    da = 65
+    for name, R, N, r0 in (
+        ("mask", CERT_ROWS, CERT_ROWS, 0),
+        ("mask", 16_384, CERT_ROWS, 65_536),
+        ("values", 65_536, APPROX_ROWS, 0),
+    ):
+        sk = (torch.randn(N, da, generator=gen, device=dev) / da**0.5).to(torch.bfloat16)
+        s_rows, rb0 = sk[r0 : r0 + R], r0 // 128
+        pairs = upper_block_pairs(R, N, rb0)
+        ops = pairs * 2 * 128 * 128 * da
+        if name == "mask":
+            thr = threshold_between_maxima(torch, blockpair_values_reference(s_rows, sk, rb0), 0.5)
+            n0 = blockpair_mask.launches
+            got = blockpair_mask(s_rows, sk, thr, rb0)
+            n_launch = blockpair_mask.launches - n0
+            want = blockpair_mask_reference(s_rows, sk, thr, rb0)
+            check(torch.equal(got, want), f"blockpair_mask R={R} N={N}: words not bitwise equal")
+            err = 0.0
+            bits = int(sum(bin(w & 0xFFFFFFFF).count("1") for w in want.flatten().tolist()))
+            detail = f"thr={thr} bits_set={bits} bitwise_equal=True"
+            kernel = lambda: blockpair_mask(s_rows, sk, thr, rb0)
+            plain = lambda: blockpair_mask_reference(s_rows, sk, thr, rb0)
+            out_bytes = 4 * (R // 128) * (N // 4096)
+        else:
+            n0 = blockpair_values.launches
+            got = blockpair_values(s_rows, sk, rb0)
+            n_launch = blockpair_values.launches - n0
+            want = blockpair_values_reference(s_rows, sk, rb0)
+            fin = torch.isfinite(want)
+            check(torch.equal(fin, torch.isfinite(got)), f"blockpair_values: -inf pattern differs")
+            err = (got[fin] - want[fin]).abs().max().item()
+            check(err <= VALUES_MAX_ABS, f"blockpair_values R={R} N={N}: max abs err {err} > {VALUES_MAX_ABS}")
+            detail = f"max_abs_err={err}"
+            kernel = lambda: blockpair_values(s_rows, sk, rb0)
+            plain = lambda: blockpair_values_reference(s_rows, sk, rb0)
+            out_bytes = 4 * (R // 128) * (N // 128)
+        check(n_launch == 1, f"blockpair_{name}: {n_launch} launches")
+        k_ms, p_ms = ab_ms(torch, plain, kernel, iters=3)
+        b_ms, b_by = bound(2 * da * (R + N) + out_bytes, ops, BF16_FLOP_PER_S)
+        res[(name, R)] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=f"R={R} N={N} d_a={da} row_block0={rb0}",
+        )
+        print(
+            f"B{3 if name == 'mask' else 4} blockpair_{name} R={R} N={N} d_a={da} row_block0={rb0} "
+            f"block_pairs={pairs}: {detail} kernel_ms={k_ms} ({ops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s) "
+            f"plain_ms={p_ms} bound_ms={b_ms} ({b_by})" + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
+        )
+        del sk, s_rows, got, want
+        torch.cuda.empty_cache()
     return res
 
 
 def phase_towers(torch, gen, dev, smi):
     import numpy as np
 
-    from image_search_tpu.config import get_config
-    from image_search_tpu.tokenizer import HashTokenizer
+    from image_search_tpu_torch.config import get_config
     from image_search_tpu_torch.models.clip import encode_image, encode_text
     from image_search_tpu_torch.models.convert import build_model, init_params
     from image_search_tpu_torch.ops.attention import fused_attention
     from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
+    from image_search_tpu_torch.tokenizer import HashTokenizer
 
     F = torch.nn.functional
     cfg = get_config("clip-vit-large-patch14")
@@ -311,18 +440,256 @@ def phase_server(torch, dev, model: str = "clip-vit-large-patch14"):
                 check(got_s == want_s, f"/search {name}: scores differ from the plain scoring")
                 distinct = [j for j in range(k) if got_s.count(got_s[j]) == 1]
                 check(all(got_p[j] == want_p[j] for j in distinct), f"/search {name}: ids differ")
+            print(
+                f"server: /scan embedded {scan['embedded']} photos in {scan['seconds']} s = "
+                f"{scan['embedded'] / scan['seconds']} img/s (request {scan_ms} ms); "
+                f"/search plain {ms1} ms, feedback {ms2} ms, /health {ms3} ms"
+            )
+            print(f"server: kernel launches in the /scan + /search run: {launches}")
+            dup = phase_duplicates(torch, dev, engine, base, media)
         finally:
             server.shutdown()
             server.server_close()
             thread.join(timeout=30)
     check(not thread.is_alive(), "server thread did not stop")
-    print(
-        f"server: /scan embedded {scan['embedded']} photos in {scan['seconds']} s = "
-        f"{scan['embedded'] / scan['seconds']} img/s (request {scan_ms} ms); "
-        f"/search plain {ms1} ms, feedback {ms2} ms, /health {ms3} ms"
+    return launches, dup
+
+
+def _kernel_counts():
+    from image_search_tpu_torch.ops.attention import fused_attention
+    from image_search_tpu_torch.ops.blockmax import blockpair_mask, blockpair_values
+    from image_search_tpu_torch.ops.score_stream import stream_scores_int8
+
+    return (fused_attention, stream_scores_int8, blockpair_mask, blockpair_values)
+
+
+def _reset_counts():
+    for fn in _kernel_counts():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {fn.__name__: fn.launches for fn in _kernel_counts()}
+
+
+def _groups(pairs, paths):
+    """Union-find groups of (i, j) pairs as a set of sorted path tuples."""
+    parent = {}
+
+    def find(x):
+        while parent.get(x, x) != x:
+            x = parent[x]
+        return x
+
+    for i, j in pairs:
+        ri, rj = find(i), find(j)
+        if ri != rj:
+            parent[ri] = rj
+    groups = {}
+    for i, j in pairs:
+        groups.setdefault(find(i), set()).update((i, j))
+    return {tuple(sorted(paths[r] for r in g)) for g in groups.values()}
+
+
+def _check_served_groups(route: str, served, must, joined, paths) -> None:
+    """The served groups hold every pair of ``must`` in one group, and each
+    lies inside one group that the pairs of ``joined`` (each already held
+    against its f32 dot) make: no group is joined by an unchecked pair."""
+    served = [set(grp) for grp in served]
+    for i, j in must:
+        check(any({paths[i], paths[j]} <= grp for grp in served), f"{route}: pair {(i, j)} not in a served group")
+    outer = [set(grp) for grp in _groups(joined, paths)]
+    for grp in served:
+        check(any(grp <= o for o in outer), f"{route}: served group {sorted(grp)[:4]} not joined by checked pairs")
+
+
+def _oracle_pairs(torch, x, threshold: float, chunk: int = 4096):
+    """Brute force on the card: every (i, j, score), i < j, with the full-f32
+    dot of rows x >= threshold, in row chunks against the rows after them."""
+    out_i, out_j, out_s = [], [], []
+    for lo in range(0, x.shape[0], chunk):
+        g = x[lo : lo + chunk] @ x[lo:].T
+        keep = g >= threshold
+        keep &= torch.arange(g.shape[1], device=x.device)[None, :] > torch.arange(g.shape[0], device=x.device)[:, None]
+        i, j = torch.nonzero(keep, as_tuple=True)
+        out_i.append(i + lo)
+        out_j.append(j + lo)
+        out_s.append(g[i, j])
+    i, j, v = (torch.cat(t).cpu().tolist() for t in (out_i, out_j, out_s))
+    return {(a, b): c for a, b, c in zip(i, j, v)}
+
+
+def _dequantized(torch, index):
+    from image_search_tpu_torch.index.index import _gather_rows
+
+    slabs, _, scales, _ = index._snapshot()
+    return _gather_rows(slabs, scales, torch.arange(index._size, device=slabs[0].device))
+
+
+def _plant(torch, gen, x, pairs, noise: float = 0.01):
+    """Make row j a near-duplicate of row i for each (i, j), in place."""
+    for i, j in pairs:
+        v = x[i] + noise * torch.randn(x.shape[1], generator=gen, device=x.device)
+        x[j] = v / v.norm()
+    return x
+
+
+def _synthetic_index(torch, dev, media, x):
+    from image_search_tpu_torch.index.index import VectorIndex
+
+    index = VectorIndex(x.shape[1], device=dev, quantize="int8")
+    paths = [os.path.join(media, "synthetic", f"{i:07d}.jpg") for i in range(x.shape[0])]
+    t0 = time.perf_counter()
+    index.add(paths, x.cpu().numpy())
+    torch.cuda.synchronize()
+    return index, time.perf_counter() - t0
+
+
+def _timed_scan(torch, index, scan: str, threshold: float, **build_kw):
+    """Build the index's sketch and run one sketch scan directly, timing the
+    build, phase 1 (the block-pair sweep and its decode, done when progress
+    first reaches one half) and phase 2 (the exact rescore). -> (pairs, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.build_sketch(**build_kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    marks = []
+
+    def progress(done, total):
+        if not marks and 2 * done >= total:
+            marks.append(time.perf_counter())
+
+    pairs = getattr(index, scan)(threshold=threshold, progress=progress)
+    t2 = time.perf_counter()
+    ms = {"sketch_ms": (t1 - t0) * 1e3, "phase1_ms": (marks[0] - t1) * 1e3, "rescore_ms": (t2 - marks[0]) * 1e3}
+    return pairs, ms
+
+
+def phase_duplicates(torch, dev, engine, base, media):
+    """GET /duplicates by its three routes on the served engine. Each route's
+    kernel counts are set to 0 just before its request and read just after."""
+    res = {}
+
+    # 1. legacy: the photos plus byte-identical copies of three of them
+    photos = sorted(engine.index.paths)
+    copies = []
+    for n, src in enumerate(photos[:: len(photos) // 3][:3]):
+        dst = os.path.join(media, f"copy_{n}.bmp")
+        shutil.copyfile(src, dst)
+        copies.append((src, dst))
+    st, scan, _ = _http("GET", base + "/scan")
+    check(st == 200 and scan["embedded"] == len(copies), f"/scan of the copies: {scan}")
+    x = _dequantized(torch, engine.index)
+    paths = [engine.to_media_path(p) for p in engine.index.paths]
+    g = (x @ x.T).cpu()
+    scores = sorted(g[torch.triu(torch.ones_like(g, dtype=torch.bool), diagonal=1)].tolist())
+    # the highest threshold below the copies that no pair score lies within
+    # 3e-3 of: the legacy scan scores int8 queries against int8 rows, the
+    # brute force f32 rows, and the two differ by ~5e-4 at D = 768
+    thr = next(
+        t / 10_000 for t in range(9_950, 0, -1)
+        if not any(abs(v - t / 10_000) < 3e-3 for v in scores)
     )
-    print(f"server: kernel launches in the main-path run: {launches}")
-    return launches
+    want = _groups([(i, j) for i in range(len(paths)) for j in range(i + 1, len(paths)) if g[i, j] >= thr], paths)
+    _reset_counts()
+    st, body, ms = _http("GET", base + f"/duplicates?threshold={thr}")
+    counts = _read_counts()
+    check(st == 200 and body["mode"] == "legacy_exact", f"/duplicates legacy: {st} {body.get('mode')}")
+    check(counts["stream_scores_int8"] > 0, f"legacy route did not launch B2: {counts}")
+    got = {tuple(grp) for grp in body["groups"]}
+    check(got == want, f"/duplicates legacy: groups differ from the brute-force f32 groups: {got ^ want}")
+    for src, dst in copies:
+        pair = {engine.to_media_path(src), engine.to_media_path(dst)}
+        check(any(pair <= set(grp) for grp in got), f"copy {dst} not grouped with {src}")
+    res["legacy"] = dict(ms=ms, counts=counts, rows=len(paths), threshold=thr, groups=len(got))
+    print(f"duplicates legacy: {len(paths)} photos threshold={thr} groups={sorted(map(len, got))} "
+          f"wall_ms={ms} launches={counts}")
+    del x, g
+
+    # 2. certified: CERT_ROWS concentrated rows (rank 32 + noise), 64 planted pairs
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, thr = CERT_ROWS, 0.95
+    m = torch.randn(32, DIM, generator=gen, device=dev)
+    x = torch.randn(n, 32, generator=gen, device=dev) @ m
+    x = torch.nn.functional.normalize(x + 0.02 * torch.randn(n, DIM, generator=gen, device=dev), dim=-1)
+    x = _plant(torch, gen, x, [(2 * p, 2 * p + 1) for p in range(64)])
+    engine.index, build_s = _synthetic_index(torch, dev, media, x)
+    del x
+    _reset_counts()
+    t0 = time.perf_counter()
+    st, job, _ = _http("GET", base + f"/duplicates?threshold={thr}&async=1")
+    check(st == 202 and job["poll"] == f"/duplicates?job={job['job']}", f"/duplicates async: {st} {job}")
+    progress = []
+    while True:
+        st, body, _ = _http("GET", base + job["poll"])
+        if st != 202:
+            break
+        progress.append(body["progress"])
+        time.sleep(0.2)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    check(st == 200 and body["state"] == "done" and body["mode"] == "certified", f"certified: {st} {body.get('mode')}")
+    check(counts["blockpair_mask"] > 0 and counts["blockpair_values"] == 0, f"certified route launches: {counts}")
+    check(progress == sorted(progress), f"progress not monotone: {progress}")
+    x = _dequantized(torch, engine.index)
+    paths = engine.index.paths
+    oracle = _oracle_pairs(torch, x, thr - BAND)
+    must = {k for k, v in oracle.items() if v >= thr + BAND}
+    # the pairs themselves, from the same scan run directly (the gated sketch, as the engine builds it)
+    pairs, parts = _timed_scan(torch, engine.index, "find_near_duplicates_sketch", thr, min_certifiable=0.5)
+    got_d = {(i, j): s for i, j, s in pairs}
+    check(set(got_d) >= must, f"certified: missing pairs {sorted(must - set(got_d))[:5]}")
+    check(set(got_d) <= set(oracle), f"certified: spurious pairs {sorted(set(got_d) - set(oracle))[:5]}")
+    worst = max((abs(s - oracle[k]) for k, s in got_d.items()), default=0.0)
+    check(worst < SCORE_ATOL, f"certified: score off its f32 dot by {worst}")
+    in_band = sum(1 for v in oracle.values() if v < thr + BAND)
+    _check_served_groups("certified", body["groups"], must, oracle, [engine.to_media_path(p) for p in paths])
+    res["certified"] = dict(ms=ms, counts=counts, rows=n, pairs=len(got_d), build_s=build_s, **parts)
+    print(f"duplicates certified: {n} rows threshold={thr} pairs={len(got_d)} oracle={len(oracle)} "
+          f"(in band {in_band}) groups={len(body['groups'])} max_score_err={worst} polls={len(progress)} "
+          f"wall_ms={ms} (corpus add {build_s:.1f} s) launches={counts}; direct scan {parts}")
+    del x
+
+    # 3. approximate: APPROX_ROWS flat rows, 20 in-block and 3 cross-block planted pairs
+    n, thr = APPROX_ROWS, 0.5
+    cross = [(100, n // 2), (n // 5, n - 576), (1_000, 2_222)]
+    planted = [(2 * p, 2 * p + 1) for p in range(20)] + cross
+    x = torch.nn.functional.normalize(torch.randn(n, DIM, generator=gen, device=dev), dim=-1)
+    x = _plant(torch, gen, x, planted)
+    engine.index = None
+    torch.cuda.empty_cache()
+    engine.index, build_s = _synthetic_index(torch, dev, media, x)
+    del x
+    _reset_counts()
+    st, body, ms = _http("GET", base + f"/duplicates?threshold={thr}")
+    counts = _read_counts()
+    check(st == 200 and body["mode"] == "approximate", f"approximate: {st} {body.get('mode')}")
+    check(counts["blockpair_values"] > 0, f"approximate route did not launch B4: {counts}")
+    paths = engine.index.paths
+    groups = body["groups"]
+    # the emitted pairs themselves, from the same scan run directly
+    pairs, parts = _timed_scan(torch, engine.index, "find_near_duplicates_candidates", thr, min_certifiable=0.0)
+    engine.index.drop_sketch()
+    check({(i, j) for i, j, _ in pairs} >= set(planted), "approximate (direct): planted pair missing")
+    # served: every planted pair found, every group joined by checked pairs
+    _check_served_groups("approximate", groups, planted, {(i, j) for i, j, _ in pairs},
+                         [engine.to_media_path(p) for p in paths])
+    x = _dequantized(torch, engine.index)
+    ii = torch.tensor([p[0] for p in pairs], device=dev)
+    jj = torch.tensor([p[1] for p in pairs], device=dev)
+    dots = (x[ii] * x[jj]).sum(dim=1).cpu().tolist()
+    worst = max(abs(s - d) for (_, _, s), d in zip(pairs, dots))
+    check(worst < SCORE_ATOL, f"approximate: score off its f32 dot by {worst}")
+    check(min(s for _, _, s in pairs) >= thr - BAND, "approximate: a pair below threshold - band")
+    res["approximate"] = dict(ms=ms, counts=counts, rows=n, pairs=len(pairs), build_s=build_s, **parts)
+    print(f"duplicates approximate: {n} rows threshold={thr} groups={len(groups)} pairs={len(pairs)} "
+          f"max_score_err={worst} wall_ms={ms} (corpus add {build_s:.1f} s) launches={counts}; "
+          f"direct scan {parts}")
+    del x
+    engine.index = None
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -362,25 +729,34 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     kern = phase_kernels(torch, gen, dev)
     towers = phase_towers(torch, gen, dev, smi)
-    launches = phase_server(torch, dev)
+    launches, dup = phase_server(torch, dev)
     check("jax" not in sys.modules, "the port imported jax")
+    check(not any(m == "image_search_tpu" or m.startswith("image_search_tpu.") for m in sys.modules),
+          "the port imported the JAX package")
 
-    attn = kern[("attention", 257)]
-    score = kern[("score", 1, False)]
+    def entry(name, source, replaces, path_launches, row, max_abs_err):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+        return {"name": name, "route": "cuda", "source": "image_search_tpu_torch/csrc/" + source,
+                "replaces": "image_search_tpu/ops/" + replaces, "launches": path_launches,
+                "max_abs_err": max_abs_err, **{k: row[k] for k in keys}}
+
+    print(smi)
     print(json.dumps({"kernels": [
-        {"name": "fused_attention", "route": "cuda",
-         "source": "image_search_tpu_torch/csrc/attention.cu",
-         "replaces": "image_search_tpu/ops/attention.py:665",
-         "launches": launches["attention"],
-         "max_abs_err": max(kern[("attention", 257)]["max_abs_err"], kern[("attention", 77)]["max_abs_err"]),
-         "ms": attn["ms"], "plain_ms": attn["plain_ms"]},
-        {"name": "stream_scores_int8", "route": "cuda",
-         "source": "image_search_tpu_torch/csrc/score_stream.cu",
-         "replaces": "image_search_tpu/ops/score_stream.py:67",
-         "launches": launches["score"],
-         "max_abs_err": max(v["max_abs_err"] for key, v in kern.items() if key[0] == "score"),
-         "ms": score["ms"], "plain_ms": score["plain_ms"]},
-    ], "img_per_s": towers["img_per_s"]}))
+        entry("fused_attention", "attention.cu", "attention.py:665", launches["attention"],
+              kern[("attention", 257)],
+              max(kern[("attention", 257)]["max_abs_err"], kern[("attention", 77)]["max_abs_err"])),
+        entry("stream_scores_int8", "score_stream.cu", "score_stream.py:67",
+              dup["legacy"]["counts"]["stream_scores_int8"], kern[("score", 1024, False)],
+              max(v["max_abs_err"] for key, v in kern.items() if key[0] == "score")),
+        entry("blockpair_mask", "blockmax.cu", "blockmax.py:66",
+              dup["certified"]["counts"]["blockpair_mask"], kern[("mask", CERT_ROWS)], 0.0),
+        entry("blockpair_values", "blockmax.cu", "blockmax.py:125",
+              dup["approximate"]["counts"]["blockpair_values"], kern[("values", 65_536)],
+              kern[("values", 65_536)]["max_abs_err"]),
+    ], "img_per_s": towers["img_per_s"],
+        "duplicates_ms": {k: v["ms"] for k, v in dup.items()},
+        "duplicates_direct_ms": {k: {p: v[p] for p in ("sketch_ms", "phase1_ms", "rescore_ms")}
+                                 for k, v in dup.items() if k != "legacy"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

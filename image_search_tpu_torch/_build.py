@@ -2,9 +2,11 @@
 
 The kernels have a plain C interface and are compiled by ``nvcc`` into one
 shared library, loaded with ``ctypes`` -- no PyTorch headers, so a build takes
-seconds, not minutes. The library lands in ``build/torch_kernels/<hash>/``
-under the repository root, keyed by a hash of the sources and the flags, and
-is built at first use: importing this module builds nothing, and nothing here
+seconds, not minutes. Each source compiles in its own ``nvcc`` process, all
+started together, and one more links the objects. The library lands in
+``build/torch_kernels/<hash>/`` under the repository root, keyed by a hash of
+the sources and the flags, and is built at first use: importing this module
+builds nothing, and nothing here
 runs on a machine without ``nvcc`` until a CUDA tensor reaches a kernel.
 
 Every C entry point launches on the stream it is given (the wrappers pass
@@ -28,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libisx_kernels.so"
 
@@ -45,6 +47,8 @@ _SIGNATURES = {
     ),
     "isx_attention_smem_bytes": ([_i, _i], _sz),
     "isx_score_int8": ([_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp], _i),
+    "isx_blockpair_mask": ([_vp, _vp, _i, _i, _i, _f, _i, _vp, _vp], _i),
+    "isx_blockpair_values": ([_vp, _vp, _i, _i, _i, _i, _vp, _vp], _i),
 }
 
 
@@ -78,15 +82,28 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent builder never loads a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        (out.parent / "nvcc.log").write_text("".join(logs))
+        for src, p, text in zip(_sources(), procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({p.returncode}):\n{text[-4000:]}")
+        tmp = os.path.join(tmpdir, LIB_NAME)
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     build_seconds = time.perf_counter() - t0
     return out
 

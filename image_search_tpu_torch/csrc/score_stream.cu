@@ -21,7 +21,10 @@
 // loads and accumulates up to 8 queries at a time with __dp4a (int8 x 4 dot
 // products into int32). Stores of out[b, n] are coalesced across the block.
 // The ragged edge (N not a multiple of 256, or of the reference's 4096) is
-// masked here instead of being required away.
+// masked here instead of being required away. A batch whose B x D queries do
+// not fit in shared memory is split by the wrapper into launches over query
+// chunks (ops/score_stream.py::query_chunks), each of which reads the slab
+// again.
 //
 // What bounds it: reading the slab, N * D bytes (768 MB at 1M rows x 768), at
 // B <= 8 -- about 2 * B integer ops per byte, far below the card's ratio of

@@ -1,2 +1,3 @@
-"""Device-resident vector index of the port; the on-disk store is shared with
-the reference (``image_search_tpu/index/store.py``, loaded by path)."""
+"""Device-resident vector index of the port, its duplicate scan and the
+on-disk store (``store.py``, a copy of the JAX package's: both packages read
+and write the same index directories)."""

@@ -14,10 +14,14 @@ f32 or int8 rows:
   4096-row-aligned blocks;
 - tombstones are additive score penalties (0 live, NEG_INF removed), passed
   to the scan only once a removal happened;
-- ``from_store`` opens an ``EmbeddingStore`` directory the reference wrote.
+- ``from_store`` opens an ``EmbeddingStore`` directory the reference wrote;
+- the corpus sketch (``build_sketch``, kept fresh across appends) and the
+  three duplicate scans: the legacy batched self-search
+  (``find_near_duplicates``), the certified sketch scan and the approximate
+  candidate scan (``index/dupscan.py``).
 
-Not ported yet (they raise): bf16 rows, the two-stage sketch search, the
-duplicate scan and device meshes.
+Not ported yet (they raise): bf16 rows, the two-stage sketch search,
+approximate top-k and device meshes.
 """
 
 from __future__ import annotations
@@ -29,13 +33,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from image_search_tpu_torch import _jaxfree
+from image_search_tpu_torch.index import twostage
+from image_search_tpu_torch.index.store import EmbeddingStore
 from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, stream_scores_int8
 from image_search_tpu_torch.ops.topk import exact_topk
 
 log = logging.getLogger(__name__)
-
-EmbeddingStore = _jaxfree.store.EmbeddingStore
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 _UPDATE_BLOCK = 4096  # rows per aligned append block
@@ -162,6 +165,14 @@ class VectorIndex:
         self._scale_slabs: Optional[List[torch.Tensor]] = [] if quantize == "int8" else None
         self._pen_slabs: List[torch.Tensor] = []
         self._removed = 0
+        # the corpus sketch (index/twostage.py): None until build_sketch();
+        # kept fresh across appends by _update_sketch_incremental
+        self._sketch: Optional[twostage.SketchState] = None
+        self.sketch_incremental = 0  # appends absorbed without a rebuild
+        # build-time certifiability gate (build_sketch min_certifiable): last
+        # estimate (None until a gated build ran) and the count of refusals
+        self.sketch_certifiable_est: Optional[float] = None
+        self.twostage_gate_skips = 0
         if capacity is not None:
             self._preallocate(capacity)
         else:
@@ -325,10 +336,71 @@ class VectorIndex:
         """Insert raw (unnormalized) embeddings; dedups by path; persists to
         the attached store if any. Returns #rows actually added."""
         with self._lock:
+            prev_sketch = self._sketch
             added = self._add_in_memory(paths, embeddings)
             if added and self.store is not None:
                 self.store.append(list(paths), np.asarray(embeddings, np.float32))
+            if added and prev_sketch is not None:
+                # a stale sketch would under-bound the new rows, so sketch
+                # them now against the existing basis (the bound is per row:
+                # still rigorous) or invalidate
+                try:
+                    ok = self._update_sketch_incremental(prev_sketch)
+                except Exception:  # never trade ingest for sketch upkeep
+                    log.exception("incremental sketch update failed; invalidating")
+                    ok = False
+                if ok:
+                    self.sketch_incremental += 1
+                else:
+                    self._sketch = None
             return added
+
+    def _update_sketch_incremental(self, sk) -> bool:
+        """Sketch rows [sk.built_rows, self._size) with the EXISTING basis and
+        write them into the sketch slabs. Caller holds ``self._lock``.
+
+        The slab sketches are updated in place: rows below the old
+        ``built_rows`` get the values they had (same rows, same basis, up to
+        f32 rounding), and rows at or past it are masked out by a scan that
+        still holds the old state, so such a scan reads valid bounds either
+        way. A tail slab that doubled under this append (``_ensure_capacity``
+        copies the old rows to offset 0) gets a zero-padded sketch slab."""
+        d_s = sk.basis.shape[1]
+        sdtype = sk.sketches[0].dtype
+        to_bf16 = sdtype == torch.bfloat16
+        # re-sketch from the aligned block boundary; rows past self._size are
+        # zeros (sketch 0, tiny resid) that the scans mask by size
+        lo = (sk.built_rows // _UPDATE_BLOCK) * _UPDATE_BLOCK
+        hi = self._size
+        sketches, resid = list(sk.sketches), list(sk.resid)
+        slack = sk.ub_slack
+        while len(sketches) < len(self._emb_slabs):  # newly allocated slabs
+            n_i = self._emb_slabs[len(sketches)].shape[0]
+            sketches.append(self._zeros((n_i, d_s), sdtype))
+            resid.append(self._zeros((n_i,)))
+        start = 0
+        for i, slab in enumerate(self._emb_slabs):
+            n_i = slab.shape[0]
+            pad = n_i - sketches[i].shape[0]
+            if pad < 0:
+                return False
+            if pad:
+                sketches[i] = torch.cat([sketches[i], self._zeros((pad, d_s), sdtype)])
+                resid[i] = torch.cat([resid[i], self._zeros((pad,))])
+            s_lo, s_hi = max(lo, start), min(hi, start + n_i)
+            if s_lo < s_hi:
+                l0 = ((s_lo - start) // _UPDATE_BLOCK) * _UPDATE_BLOCK
+                l1 = min(n_i, -(-(s_hi - start) // _UPDATE_BLOCK) * _UPDATE_BLOCK)
+                sc = None if self._scale_slabs is None else self._scale_slabs[i][l0:l1]
+                s, t, d = twostage.sketch_slab(slab[l0:l1], sc, sk.basis, to_bf16)
+                sketches[i][l0:l1] = s
+                resid[i][l0:l1] = t
+                slack = torch.maximum(slack, d)
+            start += n_i
+        self._sketch = twostage.SketchState(
+            sk.basis, tuple(sketches), tuple(resid), self._size, slack
+        )
+        return True
 
     def _remove_in_memory(self, paths: Sequence[str]):
         with self._lock:
@@ -426,6 +498,171 @@ class VectorIndex:
             sel[b, : len(r)] = r
         q = _rocchio_queries(slabs, scales, norms, text, torch.from_numpy(sel).to(self.device))
         return self._to_host(*_search_local(slabs, size, q, k, scales, pens))
+
+    # -- the corpus sketch (index/twostage.py) ----------------------------------
+
+    def build_sketch(
+        self, d_s: int = 64, sample_rows: int = 8192, dtype: str = "float32",
+        min_certifiable: float = 0.0, est_k: int = 1000,
+    ) -> None:
+        """Build the corpus sketch: one streaming pass over the slabs plus a
+        host SVD of a strided row sample. No-op on an empty index.
+
+        ``dtype="bfloat16"`` stores the sketch in bf16 (its rounding is
+        folded into a data-derived bound inflation, ``ub_slack``).
+        ``min_certifiable`` > 0 gates publication on the build-time
+        certifiability estimate (``twostage.estimate_certifiable_fraction``
+        with ``est_k``-fraction-scaled ranks): a spectrally flat corpus then
+        gets no sketch, and the duplicate scan takes another route. The
+        estimate lands in ``sketch_certifiable_est`` either way."""
+        to_bf16 = dtype in ("bfloat16", "bf16")
+        with self._lock:
+            if self._size == 0:
+                return
+            slabs, _, scales, _ = self._snapshot()
+            size = self._size
+        m = min(sample_rows, size)
+        idx = torch.from_numpy(np.linspace(0, size - 1, m).astype(np.int64)).to(self.device)
+        sample = _gather_rows(slabs, scales, idx).cpu().numpy()
+        basis_np = twostage.fit_basis(sample, d_s)
+        if min_certifiable > 0.0:
+            est = twostage.estimate_certifiable_fraction(
+                sample, basis_np, size, k=est_k,
+                candidate_rows=twostage.DEFAULT_BLOCKS * twostage.BLOCK,
+                fs_slack=twostage.FULL_SCAN_SLACK["int8" if self.quantize == "int8" else "float32"],
+                # bf16 sketch storage costs a data-derived ub_slack that is
+                # not known yet: charge the 0.01 the reference charges
+                ub_slack=0.01 if to_bf16 else 0.0,
+            )
+            self.sketch_certifiable_est = est
+            if est < min_certifiable:
+                log.warning(
+                    "sketch NOT published: estimated certifiable fraction %.2f < %.2f "
+                    "gate (corpus spectrum too flat)", est, min_certifiable,
+                )
+                with self._lock:
+                    self._sketch = None
+                    self.twostage_gate_skips += 1
+                return
+        basis = torch.from_numpy(basis_np).to(self.device)
+        sketches, resid = [], []
+        slack = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i, slab in enumerate(slabs):
+            s, t, d = twostage.sketch_slab(slab, None if scales is None else scales[i], basis, to_bf16)
+            sketches.append(s)
+            resid.append(t)
+            slack = torch.maximum(slack, d)
+        with self._lock:
+            if self._size != size:
+                return  # a concurrent append won the race; this sketch is stale
+            self._sketch = twostage.SketchState(basis, tuple(sketches), tuple(resid), size, slack)
+
+    @property
+    def sketch_fresh(self) -> bool:
+        return self._sketch is not None and self._sketch.built_rows == self._size
+
+    def drop_sketch(self) -> None:
+        """Unpublish the sketch (the engine does so after building an UNGATED
+        sketch solely for the approximate duplicate scan)."""
+        with self._lock:
+            self._sketch = None
+
+    # -- duplicate scans -----------------------------------------------------------
+
+    def find_near_duplicates(
+        self,
+        threshold: float = 0.95,
+        neighbors: int = 8,
+        batch: int = 1024,
+        approx: bool = False,
+        progress=None,
+    ):
+        """Near-duplicate pairs by cosine similarity, the legacy scan: every
+        live row is queried against the index in batches of ``batch`` (the
+        last one padded with its final row, as the reference pads it), and
+        neighbour pairs scoring >= threshold come back as (row_i, row_j,
+        score), i < j, each once. ``progress(rows_done, rows_total)`` is
+        called after every batch. ``approx`` is served by the exact top-k:
+        the port has no approximate top-k, and an exact answer holds every
+        pair an approximate one would."""
+        with self._lock:
+            rows = sorted(self._row.values())
+            if not rows:
+                return []
+            slabs, _, scales, pens = self._snapshot()
+            size = self._size
+        k = min(neighbors + 1, size)  # +1: the self-match is always there
+        pair_chunks: List[np.ndarray] = []
+        score_chunks: List[np.ndarray] = []
+        total = len(rows)
+        for lo in range(0, total, batch):
+            chunk = rows[lo : lo + batch]
+            idx = np.full((batch,), chunk[-1], np.int64)
+            idx[: len(chunk)] = chunk
+            q = _gather_rows(slabs, scales, torch.from_numpy(idx).to(self.device))
+            sc, nb = _search_local(slabs, size, q, k, scales, pens)
+            sc = sc[: len(chunk)].cpu().numpy()
+            nb = nb[: len(chunk)].cpu().numpy().astype(np.int64)
+            r = np.asarray(chunk, np.int64)[:, None]
+            # both orientations, normalized to (min, max): in a cluster larger
+            # than `neighbors`, top-k tie-breaking can make high-id members
+            # visible only from their own query side
+            mask = (nb != r) & (sc >= threshold)
+            if mask.any():
+                ri = np.broadcast_to(r, nb.shape)[mask]
+                rj = nb[mask]
+                pair_chunks.append(np.stack([np.minimum(ri, rj), np.maximum(ri, rj)], axis=1))
+                score_chunks.append(sc[mask].astype(np.float32))
+            if progress is not None:
+                progress(min(lo + batch, total), total)
+        if not pair_chunks:
+            return []
+        pairs = np.concatenate(pair_chunks)
+        scores = np.concatenate(score_chunks)
+        # dedupe keeping the max score per (i, j)
+        order = np.lexsort((-scores, pairs[:, 1], pairs[:, 0]))
+        pairs, scores = pairs[order], scores[order]
+        first = np.ones(len(pairs), bool)
+        first[1:] = (pairs[1:] != pairs[:-1]).any(axis=1)
+        pairs, scores = pairs[first], scores[first]
+        return [(int(i), int(j), float(s)) for (i, j), s in zip(pairs, scores)]
+
+    def _sketch_scan_snapshot(self):
+        from image_search_tpu_torch.index import dupscan
+
+        with self._lock:
+            sk = self._sketch
+            if sk is None or sk.built_rows != self._size:
+                raise dupscan.DupScanBailout("no fresh sketch")
+            slabs, _, scales, pens = self._snapshot()
+            return slabs, scales, pens, self._size, sk
+
+    def find_near_duplicates_sketch(self, threshold: float = 0.95, progress=None, **kw):
+        """The certified sketch scan (``dupscan.sketch_duplicate_pairs``):
+        every live pair with cosine >= threshold, not truncated to a
+        neighbour count. Raises ``dupscan.DupScanBailout`` without a fresh
+        sketch or when the corpus is too flat for the bound to prune."""
+        from image_search_tpu_torch.index import dupscan
+
+        slabs, scales, pens, size, sk = self._sketch_scan_snapshot()
+        if size == 0:
+            return []
+        return dupscan.sketch_duplicate_pairs(
+            slabs, scales, pens, size, sk, threshold, progress=progress, **kw
+        )
+
+    def find_near_duplicates_candidates(self, threshold: float = 0.95, progress=None, **kw):
+        """The approximate sketch-candidate scan
+        (``dupscan.sketch_candidate_pairs``): emitted pairs carry true f32
+        scores >= threshold; recall is heuristic. Needs a fresh sketch."""
+        from image_search_tpu_torch.index import dupscan
+
+        slabs, scales, pens, size, sk = self._sketch_scan_snapshot()
+        if size == 0:
+            return []
+        return dupscan.sketch_candidate_pairs(
+            slabs, scales, pens, size, sk, threshold, progress=progress, **kw
+        )
 
     # -- lookups ---------------------------------------------------------------
 

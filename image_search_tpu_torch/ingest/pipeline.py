@@ -14,12 +14,10 @@ import logging
 import time
 from typing import List, Sequence
 
-from image_search_tpu_torch import _jaxfree
 from image_search_tpu_torch.ingest.decode import DecodePool
+from image_search_tpu_torch.ingest.walk import find_images
 
 log = logging.getLogger(__name__)
-
-find_images = _jaxfree.walk.find_images
 
 
 @dataclasses.dataclass

@@ -23,7 +23,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from image_search_tpu.config import CLIPConfig
+from image_search_tpu_torch.config import CLIPConfig
 from image_search_tpu_torch.models.clip import CLIP
 
 _ST_DTYPES = {

@@ -6,10 +6,16 @@ app.py``), with byte-identical bodies for the same engine results:
 - ``POST /search`` -- body ``{"q": str, "referenced_images": [str]}``,
   response ``{"images": [{"id", "image_path", "score"}]}``;
 - ``GET /scan`` -- runs the ingest (one at a time) and answers when it is done;
+- ``GET /duplicates[?threshold=0.95]`` -- near-duplicate photo groups,
+  ``{"groups": [[...]], "mode": ...}``; with ``?async=1`` it answers 202 with
+  a job id and a ``poll`` URL, and ``?job=<id>`` answers 202 with the
+  progress while the scan runs and 200 with the groups when it is done. One
+  scan runs at a time; an async request at another threshold while a job
+  runs gets 409;
 - ``GET /health`` and ``GET /media/<path>`` (the photo directory).
 
-``/search_image``, ``/remove``, ``/duplicates``, ``/metrics``, the web client
-and micro-batching are not ported yet. Run it with the reference's flags::
+``/search_image``, ``/remove``, ``/metrics``, the web client and
+micro-batching are not ported yet. Run it with the reference's flags::
 
     python -m image_search_tpu_torch.server.app --media-dir ~/Pictures \\
         --index-dir ./index --index-quantize int8 [--device cuda]
@@ -23,17 +29,51 @@ import mimetypes
 import os
 import threading
 import urllib.parse
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from image_search_tpu_torch import _jaxfree
+from image_search_tpu_torch.server import args as server_args
 from image_search_tpu_torch.server.engine import MEDIA_PREFIX, SearchEngine
+from image_search_tpu_torch.server.wire import SearchParams
+from image_search_tpu_torch.utils.metrics import global_metrics
 
 log = logging.getLogger(__name__)
 
 MAX_BODY = 16 * 1024 * 1024
 
 
+class _DupJob:
+    """One asynchronous duplicate scan, run on its own thread."""
+
+    def __init__(self, threshold: float):
+        self.id = uuid.uuid4().hex[:12]
+        self.threshold = threshold
+        self.done = threading.Event()
+        self.groups = None
+        self.mode = None
+        self.failed = False
+
+
+def _dup_progress() -> float:
+    return global_metrics.snapshot()["gauges"].get("duplicate_scan_progress", 0.0)
+
+
 def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
+    dup_lock = threading.Lock()  # single-flight: one duplicate scan at a time
+    jobs_lock = threading.Lock()  # guards `jobs` (check-then-start of a job)
+    jobs: dict = {}  # "last": the running or last finished async job
+
+    def run_job(job: _DupJob) -> None:
+        try:
+            with dup_lock:
+                job.groups = engine.find_duplicate_groups(job.threshold)
+                job.mode = engine.last_duplicate_mode
+        except Exception:  # reported to the poller as a failed job
+            log.exception("duplicate scan job failed")
+            job.failed = True
+        finally:
+            job.done.set()
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -51,9 +91,13 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
             self._send(status, json.dumps(obj).encode())
 
         def do_GET(self):
-            path = urllib.parse.urlsplit(self.path).path
+            url = urllib.parse.urlsplit(self.path)
+            path = url.path
             if path == "/scan":
                 return self._scan()
+            if path == "/duplicates":
+                query = urllib.parse.parse_qs(url.query, keep_blank_values=True)
+                return self._duplicates({k: v[0] for k, v in query.items()})
             if path == "/health":
                 return self._json(
                     200, {"status": "ok", "model": engine.cfg.name, "corpus": len(engine.index)}
@@ -71,7 +115,7 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
             if path != "/search":
                 return self._json(404, {"error": "not found"})
             try:
-                params = _jaxfree.wire.SearchParams.from_json(json.loads(body))
+                params = SearchParams.from_json(json.loads(body))
             except Exception:
                 return self._json(400, {"error": "invalid SearchParams"})
             try:
@@ -100,6 +144,58 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
                 },
             )
 
+        def _duplicates(self, query: dict):
+            job_id = query.get("job")
+            if job_id is not None:
+                with jobs_lock:
+                    job = jobs.get("last")
+                if job is None or job.id != job_id:
+                    return self._json(404, {"error": "unknown job"})
+                if not job.done.is_set():
+                    return self._json(
+                        202, {"job": job_id, "state": "running", "progress": _dup_progress()}
+                    )
+                if job.failed:
+                    return self._json(500, {"job": job_id, "state": "failed"})
+                return self._json(
+                    200, {"job": job_id, "state": "done", "groups": job.groups, "mode": job.mode}
+                )
+            try:
+                threshold = float(query.get("threshold", "0.95"))
+            except ValueError:
+                return self._json(400, {"error": "bad threshold"})
+            if not 0.0 < threshold <= 1.0:
+                return self._json(400, {"error": "threshold must be in (0, 1]"})
+            if query.get("async") in ("1", "true"):
+                with jobs_lock:
+                    job = jobs.get("last")
+                    if job is not None and not job.done.is_set():
+                        # joining is right only at the same threshold
+                        if job.threshold != threshold:
+                            return self._json(409, {
+                                "error": f"duplicate scan already running at threshold {job.threshold}",
+                                "job": job.id,
+                                "threshold": job.threshold,
+                            })
+                        return self._json(
+                            202, {"job": job.id, "state": "running", "progress": _dup_progress()}
+                        )
+                    job = jobs["last"] = _DupJob(threshold)
+                    # the gauge still holds the last scan's 1.0 until the job starts
+                    global_metrics.gauge("duplicate_scan_progress", 0.0)
+                    threading.Thread(target=run_job, args=(job,), name="duplicates", daemon=True).start()
+                return self._json(
+                    202, {"job": job.id, "state": "running", "poll": f"/duplicates?job={job.id}"}
+                )
+            try:
+                with dup_lock:
+                    groups = engine.find_duplicate_groups(threshold)
+                    mode = engine.last_duplicate_mode
+            except Exception:
+                log.exception("duplicate scan failed")
+                return self._send(500, b"")
+            self._json(200, {"groups": groups, "mode": mode})
+
         def _media(self, media_path: str):
             abs_path = engine.to_abs_path(media_path)
             if abs_path is None or not os.path.isfile(abs_path):
@@ -121,7 +217,7 @@ def make_server(engine: SearchEngine, addr: str = "127.0.0.1", port: int = 0) ->
 
 
 def build_parser():
-    p = _jaxfree.args.build_parser()
+    p = server_args.build_parser()
     p.prog = "python -m image_search_tpu_torch.server.app"
     p.add_argument("--device", default="cuda", help="torch device to serve on (default cuda)")
     return p
@@ -131,7 +227,7 @@ def parse_args(argv=None):
     """-> (the reference's ServerArgs, device)."""
     ns = vars(build_parser().parse_args(argv))
     device = ns.pop("device")
-    return _jaxfree.args.ServerArgs(**ns), device
+    return server_args.ServerArgs(**ns), device
 
 
 def main(argv=None) -> None:

@@ -2,9 +2,10 @@
 
 Port of ``image_search_tpu/server/engine.py::SearchEngine`` for the main
 path: load the checkpoint (or seeded random demo weights), scan a media
-directory into the index, and answer text searches with optional Rocchio
+directory into the index, answer text searches with optional Rocchio
 feedback through one batched program (the reference's non-two-stage branch),
-rendering the reference's wire format byte for byte.
+rendering the reference's wire format byte for byte, and find near-duplicate
+photo groups by the reference's three routes (``find_duplicate_groups``).
 
 The engine runs on an explicit device (default ``cuda``). Flags for what is
 not ported yet raise at construction: the two-stage and approximate searches,
@@ -24,17 +25,17 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from image_search_tpu.config import get_config
-from image_search_tpu.tokenizer import CLIPBPETokenizer, HashTokenizer
-from image_search_tpu_torch import _jaxfree, check_precision
+from image_search_tpu_torch import check_precision
+from image_search_tpu_torch.config import get_config
 from image_search_tpu_torch.index.index import NEG_INF, EmbeddingStore, VectorIndex
 from image_search_tpu_torch.ingest.pipeline import ScanStats, scan_directory
 from image_search_tpu_torch.models.convert import build_model, init_params, load_checkpoint, params_from_jax
 from image_search_tpu_torch.models.embedder import ClipEmbedder
+from image_search_tpu_torch.server.args import ServerArgs
+from image_search_tpu_torch.tokenizer import CLIPBPETokenizer, HashTokenizer
+from image_search_tpu_torch.utils.metrics import global_metrics
 
 log = logging.getLogger(__name__)
-
-ServerArgs = _jaxfree.args.ServerArgs
 
 MEDIA_PREFIX = "media/"
 DEMO_SEED = 0
@@ -72,6 +73,7 @@ class SearchEngine:
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
         self.device = torch.device(device)
+        self.last_duplicate_mode: Optional[str] = None
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
         check_precision()
@@ -267,3 +269,98 @@ class SearchEngine:
             chunk_size=self.args.chunk_size, decode_workers=self.args.decode_workers,
             skip_paths=self._excluded,
         )
+
+    # above this corpus size the legacy duplicate scan would default to an
+    # approximate top-k, and a flat corpus takes the approximate sketch scan
+    DUPLICATES_APPROX_ABOVE = 1_000_000
+    # above this corpus size (or with a fresh sketch) the certified sketch
+    # scan is tried first; below it the legacy scan is fast enough
+    DUPLICATES_SKETCH_ABOVE = 200_000
+
+    def find_duplicate_groups(self, threshold: float = 0.95, approx: Optional[bool] = None):
+        """Near-duplicate photo groups (cosine >= threshold), as lists of
+        'media/...' paths sorted largest group first: union-find over the
+        pairs of ``_duplicate_pairs``. Publishes ``duplicate_scan_progress``
+        (0..1) while running, and ``duplicate_scan_certified`` (1 when the
+        pair set is complete) and sets ``last_duplicate_mode`` when done."""
+        if approx is None:
+            approx = len(self.index) > self.DUPLICATES_APPROX_ABOVE
+
+        def _progress(done: int, total: int) -> None:
+            global_metrics.gauge("duplicate_scan_progress", round(done / max(total, 1), 4))
+
+        _progress(0, 1)
+        with global_metrics.timer("duplicate_scan"):
+            pairs, mode = self._duplicate_pairs(threshold, approx, _progress)
+        # 'certified' and 'legacy_exact' pair sets are complete;
+        # 'approximate' and 'legacy_approx' may miss pairs, never add one
+        self.last_duplicate_mode = mode
+        global_metrics.gauge(
+            "duplicate_scan_certified", 1.0 if mode in ("certified", "legacy_exact") else 0.0
+        )
+        _progress(1, 1)
+        parent: dict = {}
+
+        def find(x):
+            while parent.get(x, x) != x:
+                parent[x] = parent.get(parent[x], parent[x])
+                x = parent[x]
+            return x
+
+        for i, j, _ in pairs:
+            ri, rj = find(i), find(j)
+            if ri != rj:
+                parent[ri] = rj
+        groups: dict = {}
+        for i, j, _ in pairs:
+            groups.setdefault(find(i), set()).update((i, j))
+        out = [
+            sorted(self.to_media_path(self.index.paths[r]) for r in members)
+            for members in groups.values()
+        ]
+        out.sort(key=len, reverse=True)
+        global_metrics.inc("duplicate_scans")
+        return out
+
+    def _duplicate_pairs(self, threshold: float, approx: bool, progress):
+        """The certified sketch scan when it can serve; on a bailout at
+        scales where the legacy scan takes hours, the approximate candidate
+        scan; the legacy scan otherwise. Returns (pairs, mode) with mode in
+        {'certified', 'approximate', 'legacy_exact', 'legacy_approx'}."""
+        from image_search_tpu_torch.index.dupscan import DupScanBailout
+
+        sketch_dtype = getattr(self.args, "sketch_dtype", "float32")
+        if self.index.sketch_fresh or len(self.index) > self.DUPLICATES_SKETCH_ABOVE:
+            if not self.index.sketch_fresh:
+                # the certifiability gate may refuse publication (flat
+                # corpus); the certified scan then bails out below
+                self.index.build_sketch(
+                    dtype=sketch_dtype,
+                    min_certifiable=getattr(self.args, "twostage_min_certifiable", 0.5),
+                )
+            try:
+                pairs = self.index.find_near_duplicates_sketch(threshold=threshold, progress=progress)
+                global_metrics.gauge("duplicate_scan_sketch", 1.0)
+                return pairs, "certified"
+            except DupScanBailout as e:
+                log.info("sketch duplicate scan bailed out (%s)", e)
+            if len(self.index) > self.DUPLICATES_APPROX_ABOVE:
+                built_ungated = False
+                try:
+                    if not self.index.sketch_fresh:
+                        self.index.build_sketch(dtype=sketch_dtype, min_certifiable=0.0)
+                        built_ungated = True
+                    pairs = self.index.find_near_duplicates_candidates(
+                        threshold=threshold, progress=progress
+                    )
+                    global_metrics.gauge("duplicate_scan_sketch", 1.0)
+                    return pairs, "approximate"
+                except DupScanBailout as e:
+                    log.info("candidate duplicate scan bailed out (%s); legacy", e)
+                finally:
+                    if built_ungated:
+                        # the gate refused this sketch; do not leave it published
+                        self.index.drop_sketch()
+        global_metrics.gauge("duplicate_scan_sketch", 0.0)
+        pairs = self.index.find_near_duplicates(threshold=threshold, approx=approx, progress=progress)
+        return pairs, ("legacy_approx" if approx else "legacy_exact")

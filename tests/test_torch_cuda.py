@@ -13,10 +13,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from image_search_tpu.config import CLIPConfig, TextConfig, VisionConfig
+from image_search_tpu_torch.config import CLIPConfig, TextConfig, VisionConfig
+from image_search_tpu_torch.ops import blockmax
 from image_search_tpu_torch.ops.attention import attention_reference, fused_attention
 from image_search_tpu_torch.ops.score_stream import (
     NEG_INF,
+    query_chunks,
     quantize_rows_int8,
     scores_int8_reference,
     stream_scores_int8,
@@ -74,6 +76,77 @@ def test_score_kernel_bitwise_equals_plain(dev, N, D, B, pens):
         torch.cuda.synchronize()
         assert stream_scores_int8.launches == n0 + 1
         assert torch.equal(got, scores_int8_reference(rows, qi, qs, scales, limit, pen))
+
+
+def test_score_kernel_chunks_a_large_batch(dev):
+    """The legacy duplicate scan's batch of 1024 queries at D = 768 does not
+    fit in shared memory: it runs as one launch per query chunk, bitwise
+    equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    N, D, B = 65_536, 768, 1024
+    rows, scales = quantize_rows_int8(F.normalize(torch.randn(N, D, generator=g, device=dev), dim=-1))
+    qi, qs = quantize_rows_int8(F.normalize(torch.randn(B, D, generator=g, device=dev), dim=-1))
+    n0 = stream_scores_int8.launches
+    got = stream_scores_int8(rows, qi, qs, scales, N - 5)
+    torch.cuda.synchronize()
+    assert stream_scores_int8.launches == n0 + len(query_chunks(B, D)) == n0 + 4
+    assert torch.equal(got, scores_int8_reference(rows, qi, qs, scales, N - 5))
+
+
+def _sketches(dev, n, da, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(n, da, generator=g, device=dev) / da**0.5).bfloat16()
+
+
+def _threshold_between_maxima(m, q):
+    """A threshold near quantile q of the finite block maxima with no
+    maximum within 1e-5 of it (summation order may move a maximum by ~1e-7)."""
+    v = torch.sort(m[torch.isfinite(m)].flatten()).values
+    gaps = v[1:] - v[:-1]
+    i = int(q * (len(v) - 1))
+    while gaps[i] < 2e-5:
+        i += 1
+    return float((v[i] + v[i + 1]) / 2)
+
+
+@pytest.mark.parametrize("R,N,da,rb0", [(1024, 8192, 65, 0), (2048, 8192, 65, 4), (1024, 4096, 17, 3), (1024, 4096, 80, 1)])
+def test_blockpair_mask_kernel_bitwise_equals_plain(dev, R, N, da, rb0):
+    s_cols = _sketches(dev, N, da, R + N + da)
+    s_rows = s_cols[rb0 * 128 : rb0 * 128 + R].contiguous() if rb0 * 128 + R <= N else _sketches(dev, R, da, 1)
+    m = blockmax.blockpair_values_reference(s_rows, s_cols, rb0)
+    for q in (0.5, 0.99):
+        thr = _threshold_between_maxima(m, q)
+        n0 = blockmax.blockpair_mask.launches
+        got = blockmax.blockpair_mask(s_rows, s_cols, thr, rb0)
+        torch.cuda.synchronize()
+        assert blockmax.blockpair_mask.launches == n0 + 1
+        want = blockmax.blockpair_mask_reference(s_rows, s_cols, thr, rb0)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert bool((want < 0).any()) or q > 0.9  # bit 31 set somewhere at the median
+
+
+@pytest.mark.parametrize("R,N,da,rb0", [(1024, 16384, 65, 4), (2048, 16384, 65, 0), (1024, 16384, 33, 100)])
+def test_blockpair_values_kernel_matches_plain(dev, R, N, da, rb0):
+    s_cols = _sketches(dev, N, da, R + N)
+    s_rows = _sketches(dev, R, da, 2)
+    n0 = blockmax.blockpair_values.launches
+    got = blockmax.blockpair_values(s_rows, s_cols, rb0)
+    torch.cuda.synchronize()
+    assert blockmax.blockpair_values.launches == n0 + 1
+    want = blockmax.blockpair_values_reference(s_rows, s_cols, rb0)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert (got[fin] - want[fin]).abs().max().item() <= 2e-5
+
+
+def test_blockpair_kernels_reject_what_they_cannot_take(dev):
+    a = torch.zeros(1024, 81, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="depth"):
+        blockmax.blockpair_mask(a, torch.zeros(4096, 81, device=dev, dtype=torch.bfloat16), 0.5, 0)
+    with pytest.raises(ValueError, match="bf16"):
+        blockmax.blockpair_values(a.float(), torch.zeros(16384, 81, device=dev), 0)
+    with pytest.raises(ValueError, match="multiple"):
+        blockmax.blockpair_mask(a[:, :65], a[:, :65], 0.5, 0)
 
 
 def test_score_kernel_rejects_what_it_cannot_take(dev):

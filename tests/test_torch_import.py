@@ -1,13 +1,17 @@
-"""The port imports torch and never jax, and imports without nvcc or triton.
+"""The port imports torch and nothing of jax or of the JAX package, and
+imports without nvcc or triton. The modules it copied from the JAX package
+behave as their counterparts there.
 
-Each check runs in a fresh interpreter: this test process has jax loaded
-already (tests/conftest.py).
+The import checks run in a fresh interpreter: this test process has jax and
+the JAX package loaded already (tests/conftest.py).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -15,17 +19,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "image_search_tpu_torch",
     "image_search_tpu_torch._build",
-    "image_search_tpu_torch._jaxfree",
+    "image_search_tpu_torch.config",
+    "image_search_tpu_torch.tokenizer",
+    "image_search_tpu_torch.tokenizer.bpe",
+    "image_search_tpu_torch.utils.metrics",
     "image_search_tpu_torch.ops.attention",
+    "image_search_tpu_torch.ops.blockmax",
     "image_search_tpu_torch.ops.score_stream",
     "image_search_tpu_torch.ops.preprocess",
     "image_search_tpu_torch.ops.topk",
     "image_search_tpu_torch.models.clip",
     "image_search_tpu_torch.models.convert",
     "image_search_tpu_torch.models.embedder",
+    "image_search_tpu_torch.index.store",
+    "image_search_tpu_torch.index.twostage",
+    "image_search_tpu_torch.index.dupscan",
     "image_search_tpu_torch.index.index",
+    "image_search_tpu_torch.ingest.walk",
     "image_search_tpu_torch.ingest.decode",
     "image_search_tpu_torch.ingest.pipeline",
+    "image_search_tpu_torch.server.wire",
+    "image_search_tpu_torch.server.args",
     "image_search_tpu_torch.server.engine",
     "image_search_tpu_torch.server.app",
 ]
@@ -38,47 +52,102 @@ def _python(code: str) -> subprocess.CompletedProcess:
     )
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax_or_the_jax_package():
     code = (
-        "import importlib, sys\n"
+        "import importlib, os, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-        "ref = sorted(m for m in sys.modules if m.startswith('image_search_tpu.'))\n"
-        "print(bad, ref)\n"
         "assert not bad, bad\n"
+        "ref = sorted(m for m in sys.modules if m == 'image_search_tpu' or m.startswith('image_search_tpu.'))\n"
+        "assert not ref, ref\n"
+        f"root = os.path.join({REPO!r}, 'image_search_tpu') + os.sep\n"
+        "files = sorted(f for f in (getattr(m, '__file__', None) for m in list(sys.modules.values())) if f and os.path.abspath(f).startswith(root))\n"
+        "assert not files, files\n"
         "assert 'triton' not in sys.modules\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    # only the jax-free reference modules the port may import
-    allowed = {
-        "image_search_tpu.config", "image_search_tpu.tokenizer", "image_search_tpu.tokenizer.bpe",
-        "image_search_tpu.utils", "image_search_tpu.utils.metrics", "image_search_tpu.utils.profiling",
-        "image_search_tpu.version",
-    }
-    ref = eval(proc.stdout.strip().split("] ", 1)[1])
-    assert set(ref) <= allowed, set(ref) - allowed
 
 
-def test_jaxfree_loader_shares_the_reference_files():
-    code = (
-        "import sys\n"
-        "from image_search_tpu_torch import _jaxfree\n"
-        "for m in (_jaxfree.store, _jaxfree.wire, _jaxfree.args, _jaxfree.walk):\n"
-        "    assert sys.modules[m.__name__] is m\n"
-        "    print(m.__file__)\n"
-        "assert _jaxfree.load('server/wire.py') is _jaxfree.wire\n"
-        "p = _jaxfree.wire.SearchParams.from_json({'q': 'x'})\n"
-        "assert p.referenced_images == [] and 'jax' not in sys.modules\n"
-    )
-    proc = _python(code)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    files = proc.stdout.split()
-    assert [os.path.relpath(f, REPO) for f in files] == [
-        os.path.join("image_search_tpu", p)
-        for p in ("index/store.py", "server/wire.py", "server/args.py", "ingest/walk.py")
-    ]
+def _copy_config():
+    from image_search_tpu import config as ref
+    from image_search_tpu_torch import config as port
+
+    assert set(port.PRESETS) == set(ref.PRESETS) and "clip-vit-large-patch14" in ref.PRESETS
+    for name in ref.PRESETS:
+        assert dataclasses.asdict(port.get_config(name)) == dataclasses.asdict(ref.get_config(name))
+        assert port.CLIPConfig.from_json(ref.get_config(name).to_json()).to_json() == ref.get_config(name).to_json()
+
+
+def _copy_tokenizer():
+    from image_search_tpu.tokenizer import HashTokenizer as RefHash, train_bpe as ref_train
+    from image_search_tpu_torch.tokenizer import HashTokenizer, train_bpe
+
+    texts = ["a red square", "", "A Photo of THINGS, number 42!", "é ü 漢字 emoji 🙂", "x" * 300]
+    np.testing.assert_array_equal(HashTokenizer(49408, 77, eos_id=49407)(texts),
+                                  RefHash(49408, 77, eos_id=49407)(texts))
+    port_bpe = train_bpe(texts * 3, vocab_size=400, context_length=16)
+    ref_bpe = ref_train(texts * 3, vocab_size=400, context_length=16)
+    np.testing.assert_array_equal(port_bpe(texts), ref_bpe(texts))
+
+
+def _copy_store(tmp_path):
+    """Each package reads the index directory the other one wrote."""
+    from image_search_tpu.index.store import EmbeddingStore as RefStore
+    from image_search_tpu_torch.index.store import EmbeddingStore
+
+    rng = np.random.default_rng(0)
+    emb = rng.normal(size=(10, 24)).astype(np.float32)
+    paths = [f"/photos/p{i}.jpg" for i in range(10)]
+    for writer, reader, name in ((RefStore, EmbeddingStore, "a"), (EmbeddingStore, RefStore, "b")):
+        w = writer(str(tmp_path / name), 24)
+        w.append(paths[:6], emb[:6])
+        w.append(paths[6:], emb[6:])
+        w.tombstone([paths[2]], exclude=True)
+        r = reader(str(tmp_path / name), 24)
+        got_paths, got_emb = [], []
+        for p, e in r.iter_shards():
+            got_paths += list(p)
+            got_emb.append(e)
+        assert got_paths == paths and len(r) == 10
+        np.testing.assert_array_equal(np.concatenate(got_emb), emb)
+        live, _ = r.liveness()
+        assert live is not None and not live[2] and live.sum() == 9
+        assert r.excluded_paths() == {paths[2]}
+
+
+def _copy_args_and_wire():
+    from image_search_tpu.server import args as ref_args, wire as ref_wire
+    from image_search_tpu_torch.server import args as port_args, wire as port_wire
+
+    body = {"q": "cat", "referenced_images": ["media/a.jpg"]}
+    assert port_wire.SearchParams.from_json(body) == port_wire.SearchParams(**vars(ref_wire.SearchParams.from_json(body)))
+    assert port_wire.SearchParams.from_json({"q": "x"}).referenced_images == []
+    for bad in ({"q": 3}, {"referenced_images": []}, {"q": "x", "referenced_images": "a"}):
+        for mod in (port_wire, ref_wire):
+            with pytest.raises(Exception):
+                mod.SearchParams.from_json(bad)
+    argv = ["-m", "/photos", "--index-quantize", "int8", "--k", "7"]
+    assert vars(port_args.build_parser().parse_args([])) == vars(ref_args.build_parser().parse_args([]))
+    assert vars(port_args.build_parser().parse_args(argv)) == vars(ref_args.build_parser().parse_args(argv))
+    assert dataclasses.asdict(port_args.ServerArgs()) == dataclasses.asdict(ref_args.ServerArgs())
+
+
+def _copy_walk(tmp_path):
+    from image_search_tpu.ingest.walk import find_images as ref_find
+    from image_search_tpu_torch.ingest.walk import find_images
+
+    for rel in ("a.jpg", "b.PNG", "sub/c.bmp", "sub/d.txt", ".hidden/e.jpg", "f.webp"):
+        os.makedirs(os.path.dirname(str(tmp_path / rel)), exist_ok=True)
+        (tmp_path / rel).write_bytes(b"x")
+    assert sorted(find_images(str(tmp_path))) == sorted(ref_find(str(tmp_path)))
+
+
+@pytest.mark.parametrize("module", ["config", "tokenizer", "store", "args_and_wire", "walk"])
+def test_copies_behave_as_the_jax_packages(module, tmp_path):
+    fn = globals()["_copy_" + module]
+    fn(tmp_path) if fn.__code__.co_argcount else fn()
 
 
 def test_kernel_library_is_not_built_at_import():
@@ -95,9 +164,11 @@ def test_kernel_library_is_not_built_at_import():
     assert rel[:2] == ["build", "torch_kernels"] and rel[-1] == "libisx_kernels.so"
 
 
-@pytest.mark.parametrize("name", ["attention.cu", "score_stream.cu"])
+@pytest.mark.parametrize("name", ["attention.cu", "score_stream.cu", "blockmax.cu"])
 def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
     with open(os.path.join(REPO, "image_search_tpu_torch", "csrc", name)) as f:
         src = f.read()
-    want = {"attention.cu": "_attn_kernel_grouped", "score_stream.cu": "_kernel_pen"}[name]
+    want = {
+        "attention.cu": "_attn_kernel_grouped", "score_stream.cu": "_kernel_pen", "blockmax.cu": "_values_kernel",
+    }[name]
     assert want in src and 'extern "C"' in src and "cudaGetLastError" in src

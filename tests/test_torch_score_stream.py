@@ -129,3 +129,20 @@ def test_no_route_for_other_devices():
     f = torch.empty((4,), device="meta")
     with pytest.raises(ValueError, match="no route"):
         stream_scores_int8(t8, t8, f, f, 4)
+
+
+@pytest.mark.parametrize("b,d", [(1024, 768), (1, 768), (296, 768), (297, 768), (5000, 512), (33, 12)])
+def test_query_chunk_plan(b, d):
+    """The launches of one wrapper call: chunks of at most floor(232448 / D)
+    queries (the kernel stages a chunk in shared memory), multiples of 8 but
+    the last, covering the batch in order."""
+    from image_search_tpu_torch.ops.score_stream import SMEM_BYTES, query_chunks
+
+    chunks = query_chunks(b, d)
+    assert SMEM_BYTES == 232448
+    assert chunks[0][0] == 0 and chunks[-1][1] == b
+    assert all(hi0 == lo1 for (_, hi0), (lo1, _) in zip(chunks, chunks[1:]))
+    assert all(0 < hi - lo <= SMEM_BYTES // d for lo, hi in chunks)
+    assert all((hi - lo) % 8 == 0 for lo, hi in chunks[:-1])
+    if (b, d) == (1024, 768):
+        assert chunks == [(0, 296), (296, 592), (592, 888), (888, 1024)]

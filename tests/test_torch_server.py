@@ -12,6 +12,7 @@ path: decode, towers, index, Rocchio feedback, ranking and the wire format.
 import json
 import os
 import threading
+import time
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -225,3 +226,94 @@ def test_decode_pool_skips_failures(tmp_path):
     finally:
         pool.close()
     assert kept == [good] and images[0].shape == (4, 6, 3)
+
+
+# ---- GET /duplicates: these run last, on the corpus plus one duplicated photo ----
+
+
+@pytest.fixture(scope="module")
+def with_duplicate(servers, scanned):
+    """A byte-identical copy of one photo, scanned into both engines."""
+    ref, port, base = servers
+    src = sorted(p for p in ref.index.paths if p.endswith(".png"))[0]
+    with open(src, "rb") as f:
+        data = f.read()
+    with open(os.path.join(port.media_dir, "copy_of_photo.png"), "wb") as f:
+        f.write(data)
+    ref.scan()
+    status, body = _request("GET", base + "/scan")
+    assert status == 200 and json.loads(body)["embedded"] == 1
+    return port.to_media_path(src), "media/copy_of_photo.png"
+
+
+def _get_json(url):
+    status, body = _request("GET", url)
+    return status, json.loads(body) if body else None
+
+
+@pytest.mark.parametrize("threshold", [0.99, 0.9])
+def test_duplicates_matches_reference(servers, with_duplicate, threshold):
+    ref, port, base = servers
+    want = ref.find_duplicate_groups(threshold)
+    status, body = _get_json(base + f"/duplicates?threshold={threshold}")
+    assert status == 200 and set(body) == {"groups", "mode"}
+    assert body["mode"] == ref.last_duplicate_mode == "legacy_exact"
+    assert sorted(map(sorted, body["groups"])) == sorted(map(sorted, want))
+    assert any(set(with_duplicate) <= set(g) for g in body["groups"])
+
+
+def test_duplicates_async_job(servers, with_duplicate):
+    ref, port, base = servers
+    status, job = _get_json(base + "/duplicates?async=1&threshold=0.99")
+    assert status == 202 and job["state"] == "running"
+    assert job["poll"] == f"/duplicates?job={job['job']}"
+    for _ in range(600):
+        status, body = _get_json(base + job["poll"])
+        if status != 202:
+            break
+        assert body["state"] == "running" and 0.0 <= body["progress"] <= 1.0
+        time.sleep(0.05)
+    assert status == 200 and body["state"] == "done" and body["job"] == job["job"]
+    assert body["mode"] == "legacy_exact"
+    want = ref.find_duplicate_groups(0.99)
+    assert sorted(map(sorted, body["groups"])) == sorted(map(sorted, want))
+
+
+def test_duplicates_errors(servers, with_duplicate, monkeypatch):
+    _, port, base = servers
+    for bad in ("0", "-0.5", "1.5", "abc", "nan"):
+        assert _request("GET", base + f"/duplicates?threshold={bad}")[0] == 400
+    assert _request("GET", base + "/duplicates?job=nope")[0] == 404
+    # a running job: joined at its threshold, 409 at another
+    release = threading.Event()
+    real = port.find_duplicate_groups
+
+    def slow(threshold=0.95, approx=None):
+        assert release.wait(timeout=60)
+        return real(threshold)
+
+    monkeypatch.setattr(port, "find_duplicate_groups", slow)
+    status, job = _get_json(base + "/duplicates?async=1&threshold=0.9")
+    assert status == 202
+    status, body = _get_json(base + "/duplicates?async=true&threshold=0.8")
+    assert status == 409 and body["job"] == job["job"] and body["threshold"] == 0.9
+    status, body = _get_json(base + "/duplicates?async=1&threshold=0.9")
+    assert status == 202 and body["job"] == job["job"] and body["state"] == "running"
+    assert _get_json(base + job["poll"])[0] == 202
+    release.set()
+    for _ in range(600):
+        status, body = _get_json(base + job["poll"])
+        if status != 202:
+            break
+        time.sleep(0.05)
+    assert status == 200 and body["groups"]
+    # a failed job answers 500
+    monkeypatch.setattr(port, "find_duplicate_groups", lambda threshold=0.95, approx=None: 1 / 0)
+    status, job = _get_json(base + "/duplicates?async=1")
+    for _ in range(600):
+        status, body = _get_json(base + job["poll"])
+        if status != 202:
+            break
+        time.sleep(0.05)
+    assert status == 500 and body == {"job": job["job"], "state": "failed"}
+    assert _request("GET", base + "/duplicates")[0] == 500
