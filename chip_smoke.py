@@ -28,7 +28,16 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    photos plus byte-identical copies (groups against a brute-force f32 pair
    set), certified on 262,144 concentrated 768-d rows through ?async=1 and
    ?job= (pairs against a brute-force f32 oracle), approximate on 1,048,576
-   flat rows (every planted pair found, every emitted pair's score checked).
+   flat rows (every planted pair found, every emitted pair's score checked);
+7. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
+   B=8) on the card against the same step in f32 on the CPU: loss and
+   gradient cosines, and B1/B5 launches per step;
+8. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
+   with captions, batch 64, 6 steps, with ``--eval-dir`` and
+   ``--checkpoint-dir``, once without and once with ``--remat``: the loss
+   falls, the output checkpoint reads back with new weights, B1/B5 launch
+   counts; ms/step, pairs/s, peak memory;
+9. a ``torch.profiler`` split of one batch-64 train step's device time.
 
 The second-to-last line is a JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``. Without a GPU the
@@ -38,6 +47,8 @@ script exits non-zero before any phase and prints no result.
 from __future__ import annotations
 
 import json
+import logging
+import math
 import os
 import shutil
 import statistics
@@ -52,6 +63,10 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATTN_MAX_ABS = 2e-2  # bf16 kernel vs bf16 plain version (output values are O(1))
 ATTN_MIN_COS = 0.9999  # per head vector, bf16 kernel vs f32 plain version
+BWD_MAX_REL = 2e-2  # B5 vs its bf16 plain version, as a share of max|plain|
+BWD_MIN_COS = 0.999  # B5 per (batch, head) vs its f32 plain version
+GRAD_MIN_COS = 0.99  # global gradient cosine, bf16 train step on the card vs f32 on the CPU
+TRAIN_BATCH, TRAIN_STEPS = 64, 6  # the fine-tune CLI runs (at the CLI's default lr, 1e-5)
 TOWER_MIN_COS = 0.99  # bf16 on the card vs f32 on the CPU over 24 layers
 VALUES_MAX_ABS = 2e-5  # B4 vs its plain version: f32 sums of 65 exact bf16 products in two orders
 MASK_MARGIN = 1e-5  # B3's threshold keeps this far from every block maximum
@@ -131,6 +146,55 @@ def threshold_between_maxima(torch, m, q: float) -> float:
     return float((v[i] + v[i + 1]) / 2)
 
 
+def check_attention_bwd(torch, gen, dev, B, S, H, causal):
+    """B5 against its plain version on the tower's layout (q scaled and
+    contiguous, k and v strided column blocks of one qkv projection), timed
+    beside the backward of scaled_dot_product_attention on the same inputs."""
+    from image_search_tpu_torch.ops.attention import attention_bwd_reference, fused_attention_bwd
+
+    F = torch.nn.functional
+    D, Hd = H * 64, 64
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = qkv[..., :D] * 0.125
+    k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    g = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    got = fused_attention_bwd(q, k, v, g, H, causal)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(q, k, v, g, H, causal)
+    want32 = attention_bwd_reference(q.float(), k.float(), v.float(), g.float(), H, causal)
+    heads = lambda t: t.float().reshape(B, S, H, Hd).permute(0, 2, 1, 3).reshape(B * H, S * Hd)
+    err, rel, cos = {}, {}, {}
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, want32):
+        err[name] = (a.float() - b.float()).abs().max().item()
+        rel[name] = err[name] / b.float().abs().max().item()
+        cos[name] = F.cosine_similarity(heads(a), heads(c), dim=-1).min().item()
+        check(rel[name] <= BWD_MAX_REL, f"attention bwd B={B} S={S} {name}: max abs err {err[name]} "
+              f"= {rel[name]} x max|plain| > {BWD_MAX_REL}")
+        check(cos[name] >= BWD_MIN_COS, f"attention bwd B={B} S={S} {name}: min cosine {cos[name]} < {BWD_MIN_COS}")
+    k_ms, p_ms = ab_ms(
+        torch, lambda: attention_bwd_reference(q, k, v, g, H, causal),
+        lambda: fused_attention_bwd(q, k, v, g, H, causal), iters=10,
+    )
+    to_heads = lambda t: t.reshape(B, S, H, Hd).transpose(1, 2)  # [B, H, S, Hd] views
+    qh, kh, vh = (to_heads(t).detach().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=1.0)
+    fwd_ms = statistics.median(cuda_ms(torch, sdpa, iters=10))
+    both_ms = statistics.median(cuda_ms(torch, lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), to_heads(g)), iters=10))
+    pairs = S * (S + 1) // 2 if causal else S * S  # the (query, key) pairs the data needs
+    b_ms, b_by = bound(7 * B * S * D * 2, 5 * 2 * B * H * pairs * Hd, BF16_FLOP_PER_S)
+    print(
+        f"B5 attention bwd B={B} S={S} H={H} Hd=64 causal={causal}: max_abs_err={err} "
+        f"(x max|plain|: {rel}) min_cos_vs_f32={cos} kernel_ms={k_ms} plain_ms={p_ms} "
+        f"sdpa_bwd_ms={both_ms - fwd_ms} (fwd+bwd {both_ms} - fwd {fwd_ms}) bound_ms={b_ms} ({b_by})"
+        + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
+    )
+    return dict(
+        max_abs_err=max(err.values()), max_rel_err=max(rel.values()), min_cos=min(cos.values()),
+        ms=k_ms, plain_ms=p_ms, library_ms=both_ms - fwd_ms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B={B} S={S} H={H} Hd=64 causal={causal}",
+    )
+
+
 def phase_kernels(torch, gen, dev):
     from image_search_tpu_torch.ops.attention import attention_reference, fused_attention
     from image_search_tpu_torch.ops.blockmax import (
@@ -184,6 +248,9 @@ def phase_kernels(torch, gen, dev):
             f"bound_ms={b_ms} ({b_by})" + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
         )
         del qkv, q, k, v, got, want, want32
+
+    for B, S, H, causal in ((TRAIN_BATCH, 257, 16, False), (TRAIN_BATCH, 77, 12, True)):
+        res[("attention_bwd", S)] = check_attention_bwd(torch, gen, dev, B, S, H, causal)
 
     D = DIM
     for N, batches in ((1_000_000, (1, 8)), (65_536, (1024,))):
@@ -456,11 +523,11 @@ def phase_server(torch, dev, model: str = "clip-vit-large-patch14"):
 
 
 def _kernel_counts():
-    from image_search_tpu_torch.ops.attention import fused_attention
+    from image_search_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
     from image_search_tpu_torch.ops.blockmax import blockpair_mask, blockpair_values
     from image_search_tpu_torch.ops.score_stream import stream_scores_int8
 
-    return (fused_attention, stream_scores_int8, blockpair_mask, blockpair_values)
+    return (fused_attention, fused_attention_bwd, stream_scores_int8, blockpair_mask, blockpair_values)
 
 
 def _reset_counts():
@@ -692,6 +759,243 @@ def phase_duplicates(torch, dev, engine, base, media):
     return res
 
 
+def _train_batch(torch, cfg, B: int, seed: int):
+    """Token ids and preprocessed f32 pixels of B random photos, on the CPU."""
+    import numpy as np
+
+    from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
+    from image_search_tpu_torch.tokenizer import HashTokenizer
+
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(B)]
+    u8, A_h, A_w = (torch.from_numpy(a) for a in pack_batch(images, size=cfg.vision.image_size))
+    tok = HashTokenizer(cfg.text.vocab_size, cfg.text.context_length, eos_id=cfg.text.eos_token_id)
+    ids = torch.from_numpy(tok([f"a photo of thing number {i}" for i in range(B)]).astype(np.int64))
+    return ids, fused_preprocess(u8, A_h, A_w)
+
+
+def _cos(a_list, b_list) -> float:
+    dot = sum(float((a.double() * b.double()).sum()) for a, b in zip(a_list, b_list))
+    na = sum(float((a.double() ** 2).sum()) for a in a_list) ** 0.5
+    nb = sum(float((b.double() ** 2).sum()) for b in b_list) ** 0.5
+    return dot / (na * nb)
+
+
+def phase_train_grad(torch, dev):
+    """One ViT-L/14 train step on the card (f32 master weights, bf16 compute)
+    against the same step in f32 on the CPU, same weights and batch."""
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.train.contrastive import adamw, make_train_step
+
+    cfg = get_config("clip-vit-large-patch14")
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev, torch.float32)
+    ids, pixels = _train_batch(torch, cfg, 8, seed=2)
+    grads, loss, counts = {}, {}, None
+    for tag, where, dtype in (("card", dev, torch.bfloat16), ("cpu", torch.device("cpu"), torch.float32)):
+        t0 = time.perf_counter()
+        init_fn, step_fn = make_train_step(cfg, adamw(1e-5), dtype, False, where)
+        st = init_fn(build_model(cfg, {k: t.to(where) for k, t in state.items()}, where, torch.float32, trainable=True))
+        if tag == "card":
+            _reset_counts()
+        st, metrics = step_fn(st, ids, pixels)
+        loss[tag] = float(metrics["loss"])
+        if tag == "card":
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        grads[tag] = {k: p.grad.detach().float().cpu() for k, p in st.model.named_parameters()}
+        print(f"train grad check: {tag} step ({dtype}) {time.perf_counter() - t0:.1f} s, loss {loss[tag]}")
+        del st, init_fn, step_fn
+        torch.cuda.empty_cache()
+    del state
+    L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
+    check(counts["fused_attention"] == L_v + L_t and counts["fused_attention_bwd"] == L_v + L_t,
+          f"train step launches {counts}, want {L_v + L_t} of B1 and of B5")
+    gc, gg = grads["card"], grads["cpu"]
+    names = sorted(gc)
+    glob = _cos([gc[n] for n in names], [gg[n] for n in names])
+    tower = {t: _cos([gc[n] for n in names if n.startswith(t)], [gg[n] for n in names if n.startswith(t)])
+             for t in ("vision.", "text.")}
+    per = sorted((_cos([gc[n]], [gg[n]]), n) for n in names)
+    dloss = abs(loss["card"] - loss["cpu"])
+    print(f"train grad check ViT-L/14 B=8: loss card {loss['card']} cpu {loss['cpu']} (diff {dloss}); "
+          f"gradient cosine global {glob} vision {tower['vision.']} text {tower['text.']} "
+          f"(bound {GRAD_MIN_COS}); lowest per-tensor {per[:3]}; launches {counts}")
+    check(all(math.isfinite(x) for x in loss.values()), f"train step losses: {loss}")
+    check(glob >= GRAD_MIN_COS, f"global gradient cosine {glob} < {GRAD_MIN_COS}")
+    return {"loss_card": loss["card"], "loss_cpu": loss["cpu"], "cos_global": glob,
+            "cos_vision": tower["vision."], "cos_text": tower["text."], "cos_min_tensor": per[0]}
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def phase_finetune(torch, dev, smi):
+    """``train.finetune.main`` on the card, without and with --remat."""
+    import numpy as np
+
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.ingest.decode import write_bmp24
+    from image_search_tpu_torch.models.convert import (
+        build_model, init_params, load_checkpoint, params_to_jax, save_checkpoint,
+    )
+    from image_search_tpu_torch.train import finetune
+
+    cfg = get_config("clip-vit-large-patch14")
+    L = cfg.vision.num_layers + cfg.text.num_layers
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as tmp:
+        weights = os.path.join(tmp, "in.safetensors")
+        model = build_model(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev, torch.float32),
+                            dev, torch.float32)
+        t0 = time.perf_counter()
+        save_checkpoint(weights, params_to_jax(model), cfg)
+        print(f"finetune: wrote a random ViT-L/14 checkpoint in {time.perf_counter() - t0:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+        data = os.path.join(tmp, "photos")
+        os.makedirs(data)
+        rng = np.random.default_rng(4)
+        colours = ["red", "green", "blue", "yellow", "white", "black", "purple", "orange"]
+        for i in range(64):
+            h, w = (int(x) for x in rng.integers(64, 400, 2))
+            img = np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
+            img[h // 4 : 3 * h // 4, w // 4 : 3 * w // 4] = rng.integers(0, 256, 3)
+            write_bmp24(os.path.join(data, f"photo_{i:02d}.bmp"), img)
+            with open(os.path.join(data, f"photo_{i:02d}.txt"), "w") as f:
+                f.write(f"photo {i}: a {colours[i % 8]} square on {colours[(i // 8) % 8]}")
+        want_in, _ = load_checkpoint(weights)
+        logger = logging.getLogger(finetune.__name__)
+        for remat in (False, True):
+            tag = "remat" if remat else "plain"
+            out = os.path.join(tmp, f"out_{tag}.safetensors")
+            argv = ["--data-dir", data, "--weights", weights, "--out", out, "--batch-size", str(TRAIN_BATCH),
+                    "--steps", str(TRAIN_STEPS), "--eval-dir", data, "--checkpoint-dir", os.path.join(tmp, f"ck_{tag}"),
+                    "--device", str(dev)] + (["--remat"] if remat else [])
+            rec = _Records()
+            logger.addHandler(rec)
+            level = logger.level
+            logger.setLevel(logging.DEBUG)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                t0 = time.perf_counter()
+                finetune.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _read_counts()
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                logger.removeHandler(rec)
+                logger.setLevel(level)
+            steps = [r.args for r in rec.records if r.levelno == logging.DEBUG and r.msg.startswith("step ")]
+            evals = {r.args[0]: r.args[2] for r in rec.records if r.msg.startswith("retrieval ")}
+            losses = [a[2] for a in steps]
+            step_ms = [a[1] for a in steps]
+            check(len(steps) == TRAIN_STEPS, f"finetune {tag}: {len(steps)} steps logged, want {TRAIN_STEPS}")
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"finetune {tag}: losses {losses}")
+            check(set(evals) == {"BEFORE", "AFTER"}, f"finetune {tag}: evaluations {sorted(evals)}")
+            got, got_cfg = load_checkpoint(out)
+            check(got_cfg == cfg, f"finetune {tag}: output config differs")
+            moved = [np.isfinite(a).all() and not np.array_equal(a, b) for a, b in (
+                (got["vision"]["blocks"]["qkv_w"], want_in["vision"]["blocks"]["qkv_w"]),
+                (got["text"]["blocks"]["fc_w"], want_in["text"]["blocks"]["fc_w"]),
+                (got["logit_scale"], want_in["logit_scale"]),
+            )]
+            check(all(moved), f"finetune {tag}: output weights unchanged or not finite: {moved}")
+            per_fwd = 2 * L if remat else L - 2  # the recompute runs B1 again
+            eval_b1 = 2 * (L - 2)  # BEFORE and AFTER: one image and one text batch each
+            want_b1 = TRAIN_STEPS * per_fwd + eval_b1
+            want_b5 = TRAIN_STEPS * (L if remat else L - 2)
+            check(counts["fused_attention"] == want_b1 and counts["fused_attention_bwd"] == want_b5,
+                  f"finetune {tag}: launches {counts}, want B1 {want_b1} and B5 {want_b5}")
+            ms = statistics.median(step_ms[1:])
+            res[tag] = dict(ms_per_step=ms, first_step_ms=step_ms[0], pairs_per_s=TRAIN_BATCH / (ms * 1e-3),
+                            peak_bytes=peak, losses=losses, counts=counts, wall_s=wall,
+                            recall1_before=evals["BEFORE"]["recall@1_i2t"], recall1_after=evals["AFTER"]["recall@1_i2t"])
+            print(f"finetune {tag}: ViT-L/14 B={TRAIN_BATCH} {TRAIN_STEPS} steps: {ms} ms/step (median of steps 1-"
+                  f"{TRAIN_STEPS - 1}; step 0 {step_ms[0]} ms) = {TRAIN_BATCH / (ms * 1e-3)} pairs/s; peak "
+                  f"{peak / 2**30:.2f} GiB; losses {losses}; recall@1 i2t {evals['BEFORE']['recall@1_i2t']} -> "
+                  f"{evals['AFTER']['recall@1_i2t']}; launches {counts} (B1 {TRAIN_STEPS} x {per_fwd} + eval "
+                  f"{eval_b1}, B5 {TRAIN_STEPS} x {want_b5 // TRAIN_STEPS}); CLI wall {wall:.1f} s  [{smi}]")
+            torch.cuda.empty_cache()
+    return res
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if "attn_fwd" in low:
+        return "B1"
+    if "attn_bwd" in low:
+        return "B5"
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "GEMM"
+    if "multi_tensor" in low or "adam" in low:
+        return "optimizer"
+    if "layer_norm" in low:
+        return "LayerNorm"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "elementwise"
+
+
+def phase_train_profile(torch, dev):
+    """Where one batch-64 ViT-L/14 train step spends the card's time:
+    host-clock ms/step over 3 steps, then ``torch.profiler`` over one."""
+    from torch.autograd import DeviceType
+
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.train.contrastive import adamw, make_train_step
+
+    cfg = get_config("clip-vit-large-patch14")
+    init_fn, step_fn = make_train_step(cfg, adamw(1e-5), torch.bfloat16, False, dev)
+    st = init_fn(build_model(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev, torch.float32),
+                             dev, torch.float32, trainable=True))
+    ids, pixels = (t.to(dev) for t in _train_batch(torch, cfg, TRAIN_BATCH, seed=6))
+    st, _ = step_fn(st, ids, pixels)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st, m = step_fn(st, ids, pixels)
+        float(m["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        st, m = step_fn(st, ids, pixels)
+        float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    split, top = {}, []
+    events = prof.key_averages()
+    # a user annotation (the optimizer's record_function) has a device-side
+    # twin spanning its kernels: count only names that are not CPU events
+    cpu_names = {evt.key for evt in events if getattr(evt, "device_type", None) == DeviceType.CPU}
+    for evt in events:
+        if getattr(evt, "device_type", None) != DeviceType.CUDA or evt.key in cpu_names:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        split[_kernel_class(evt.key)] = split.get(_kernel_class(evt.key), 0.0) + us / 1e3
+        top.append((us / 1e3, evt.key[:60]))
+    busy = sum(split.values())
+    top = sorted(top, reverse=True)[:8]
+    print(f"train profile ViT-L/14 B={TRAIN_BATCH} no remat: {statistics.median(times)} ms/step host clock "
+          f"({times}); profiled step wall {wall} ms, device busy "
+          + (f"{busy} ms ({busy / wall:.1%}): {split}; top kernels {top}" if busy else "not measured (no device events)"))
+    del st, init_fn, step_fn
+    torch.cuda.empty_cache()
+    return {"ms_per_step": statistics.median(times), "profiled_wall_ms": wall, "device_ms": split}
+
+
 def main() -> int:
     import torch
 
@@ -730,6 +1034,9 @@ def main() -> int:
     kern = phase_kernels(torch, gen, dev)
     towers = phase_towers(torch, gen, dev, smi)
     launches, dup = phase_server(torch, dev)
+    grad = phase_train_grad(torch, dev)
+    ft = phase_finetune(torch, dev, smi)
+    prof = phase_train_profile(torch, dev)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "image_search_tpu" or m.startswith("image_search_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -753,7 +1060,13 @@ def main() -> int:
         entry("blockpair_values", "blockmax.cu", "blockmax.py:125",
               dup["approximate"]["counts"]["blockpair_values"], kern[("values", 65_536)],
               kern[("values", 65_536)]["max_abs_err"]),
+        entry("fused_attention_bwd", "attention_bwd.cu", "attention.py:122",
+              ft["plain"]["counts"]["fused_attention_bwd"], kern[("attention_bwd", 257)],
+              max(kern[("attention_bwd", 257)]["max_abs_err"], kern[("attention_bwd", 77)]["max_abs_err"])),
     ], "img_per_s": towers["img_per_s"],
+        "train_ms_per_step": ft["plain"]["ms_per_step"], "train_pairs_per_s": ft["plain"]["pairs_per_s"],
+        "train_remat_ms_per_step": ft["remat"]["ms_per_step"],
+        "train_grad_cos": grad["cos_global"],
         "duplicates_ms": {k: v["ms"] for k, v in dup.items()},
         "duplicates_direct_ms": {k: {p: v[p] for p in ("sketch_ms", "phase1_ms", "rescore_ms")}
                                  for k, v in dup.items() if k != "legacy"}}))

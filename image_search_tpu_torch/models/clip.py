@@ -1,15 +1,22 @@
 """CLIP dual-tower model as ``nn.Module``s.
 
-Port of ``image_search_tpu/models/clip.py`` for inference. The math and the
-dtype policy are the reference's: activations in the weights' dtype (bf16 on
-the card), LayerNorm statistics, softmax and attention accumulation in f32.
+Port of ``image_search_tpu/models/clip.py``. The math and the dtype policy
+are the reference's: activations in the compute dtype, each weight cast to it
+at its use (``F.linear(x, w.to(x.dtype), b.to(x.dtype))``), LayerNorm
+statistics, softmax and attention accumulation in f32. Serving holds bf16
+weights, so the casts are no-ops; training holds f32 master weights and
+computes in bf16, as the reference's train step does.
 
 - ``encode_image``: patchify as a matmul, class token, pre-LN, blocks
-  ``0..L-2`` through kernel B1 (``ops.attention.fused_attention``), then the
-  CLS-only last block, post-LN and the projection.
+  ``0..L-2`` through the attention core (``ops.attention``: kernel B1
+  forward, B5 backward), then the CLS-only last block, post-LN and the
+  projection.
 - ``encode_text``: token + position embedding, blocks ``0..L-2`` causal
-  through B1, then the EOS-only last block (pooled at the FIRST EOS token),
-  the final LN and the projection.
+  through the core, then the EOS-only last block (pooled at the FIRST EOS
+  token), the final LN and the projection.
+- ``remat=True`` (training) runs the full L-layer stacks instead, each block
+  under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+  over its scanned blocks does.
 
 The CLS/EOS-only last blocks stay plain torch, as they are plain XLA in the
 reference. Layouts differ from the reference's parameter pytree only in the
@@ -19,11 +26,22 @@ maps one to the other.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
-from image_search_tpu_torch.ops.attention import NEG_INF, fused_attention
+from image_search_tpu_torch.ops.attention import NEG_INF, AttentionCore
+
+# remat policies (the reference's jax.checkpoint_policies names): "" recomputes
+# everything; the default saves the outputs of matmuls without batch dims
+# (aten.mm / aten.addmm: every projection) and recomputes the rest
+REMAT_POLICIES = {
+    "": None,
+    "dots_with_no_batch_dims_saveable": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+}
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -41,6 +59,12 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "gelu_tanh":
         return F.gelu(x, approximate="tanh")
     raise ValueError(f"unknown activation {kind!r}")
+
+
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin`` applied in x's dtype: its weight is cast at the use."""
+    b = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), b)
 
 
 def _ln(d: int, eps: float) -> nn.LayerNorm:
@@ -63,7 +87,7 @@ class Block(nn.Module):
         self.proj = nn.Linear(M, D)
 
     def mlp(self, x):
-        return self.proj(_act(self.fc(x), self.act))
+        return _linear(_act(_linear(x, self.fc), self.act), self.proj)
 
     def attention(self, xn, causal: bool):
         """Self-attention over the LN'd input; q is pre-scaled by Hd^-0.5,
@@ -71,10 +95,10 @@ class Block(nn.Module):
         reads k and v as strided column blocks of it."""
         D = xn.shape[-1]
         Hd = D // self.heads
-        qkv = self.qkv(xn)
+        qkv = _linear(xn, self.qkv)
         q = qkv[..., :D] * float(Hd**-0.5)
-        out = fused_attention(q, qkv[..., D : 2 * D], qkv[..., 2 * D :], self.heads, causal, 1.0)
-        return self.o(out)
+        out = AttentionCore.apply(q, qkv[..., D : 2 * D], qkv[..., 2 * D :], self.heads, causal, 1.0)
+        return _linear(out, self.o)
 
     def forward(self, x, causal: bool):
         x = x + self.attention(_layer_norm(x, self.ln1), causal)
@@ -84,7 +108,7 @@ class Block(nn.Module):
         """q for the selected rows [B, 1, D] (pre-scaled), k and v for all."""
         D = xn.shape[-1]
         Hd = D // self.heads
-        w, b = self.qkv.weight, self.qkv.bias
+        w, b = self.qkv.weight.to(xn.dtype), self.qkv.bias.to(xn.dtype)
         q = F.linear(xn_q, w[:D], b[:D]) * float(Hd**-0.5)
         k = F.linear(xn, w[D : 2 * D], b[D : 2 * D])
         v = F.linear(xn, w[2 * D :], b[2 * D :])
@@ -105,7 +129,7 @@ class Block(nn.Module):
             logits = logits.masked_fill(~col_mask, NEG_INF)
         p = torch.softmax(logits, dim=-1).to(dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.reshape(B, S, H, Hd).float())
-        return self.o(out.to(dtype).reshape(B, 1, D))
+        return _linear(out.to(dtype).reshape(B, 1, D), self.o)
 
     def forward_cls(self, x):
         """Last block truncated to the CLS row -> [B, 1, D] (``_block_cls``):
@@ -191,43 +215,80 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return (x.float() / torch.clamp(n, min=eps)).to(x.dtype)
 
 
-def encode_image(model: CLIP, pixels: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-    """Preprocessed pixels [B, H, W, 3] (NHWC, normalized) -> [B, proj_dim]."""
+def _encoder(x, blocks, causal: bool, remat_policy: str):
+    """Every block of a tower (the training path), each under
+    ``torch.utils.checkpoint`` with the named policy."""
+    ops = REMAT_POLICIES[remat_policy]
+    context_fn = checkpoint.noop_context_fn
+    if ops is not None:
+        context_fn = functools.partial(checkpoint.create_selective_checkpoint_contexts, list(ops))
+    for blk in blocks:
+        x = checkpoint.checkpoint(blk, x, causal, use_reentrant=False, context_fn=context_fn)
+    return x
+
+
+def encode_image(
+    model: CLIP, pixels: torch.Tensor, normalize: bool = False, compute_dtype=None,
+    remat: bool = False, remat_policy: str = "",
+) -> torch.Tensor:
+    """Preprocessed pixels [B, H, W, 3] (NHWC, normalized) -> [B, proj_dim].
+    ``compute_dtype`` defaults to the weights' dtype."""
     v = model.vision
     vc = v.cfg
-    dtype = model.dtype
+    dtype = compute_dtype or model.dtype
     B = pixels.shape[0]
-    x = v.patch_embedding(patchify(pixels.to(dtype), vc.patch_size))
-    cls = v.class_embedding.reshape(1, 1, -1).expand(B, 1, -1)
-    x = torch.cat([cls, x], dim=1) + v.position_embedding
+    x = _linear(patchify(pixels.to(dtype), vc.patch_size), v.patch_embedding)
+    cls = v.class_embedding.to(dtype).reshape(1, 1, -1).expand(B, 1, -1)
+    x = torch.cat([cls, x], dim=1) + v.position_embedding.to(dtype)
     x = _layer_norm(x, v.pre_ln)
-    if vc.num_layers > 1:
+    if remat:
+        pooled = _encoder(x, v.blocks, False, remat_policy)[:, 0]
+    elif vc.num_layers > 1:
         for blk in v.blocks[:-1]:
             x = blk(x, causal=False)
         pooled = v.blocks[-1].forward_cls(x)[:, 0]
     else:
         pooled = v.blocks[0](x, causal=False)[:, 0]
     pooled = _layer_norm(pooled, v.post_ln)
-    emb = v.projection(pooled)
+    emb = _linear(pooled, v.projection)
     return l2_normalize(emb) if normalize else emb
 
 
-def encode_text(model: CLIP, input_ids: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-    """Token ids [B, S] -> [B, proj_dim], pooled at the first EOS token."""
+def encode_text(
+    model: CLIP, input_ids: torch.Tensor, normalize: bool = False, compute_dtype=None,
+    remat: bool = False, remat_policy: str = "",
+) -> torch.Tensor:
+    """Token ids [B, S] -> [B, proj_dim], pooled at the first EOS token.
+    ``compute_dtype`` defaults to the weights' dtype."""
     t = model.text
     tc = t.cfg
     B, S = input_ids.shape
-    x = (t.token_embedding[input_ids] + t.position_embedding[:S]).to(model.dtype)
+    x = (t.token_embedding[input_ids] + t.position_embedding[:S]).to(compute_dtype or model.dtype)
     # HF CLIP pools at the first EOS token (pad == EOS for CLIP's tokenizer);
     # torch.argmax returns the first maximal index
     eos_pos = torch.argmax((input_ids == tc.eos_token_id).to(torch.int32), dim=-1)
-    if tc.num_layers > 1:
+    rows = torch.arange(B, device=x.device)
+    if remat:
+        pooled = _encoder(x, t.blocks, True, remat_policy)[rows, eos_pos]
+    elif tc.num_layers > 1:
         for blk in t.blocks[:-1]:
             x = blk(x, causal=True)
         pooled = t.blocks[-1].forward_eos(x, eos_pos)[:, 0]
     else:
         x = t.blocks[0](x, causal=True)
-        pooled = x[torch.arange(B, device=x.device), eos_pos]
+        pooled = x[rows, eos_pos]
     pooled = _layer_norm(pooled, t.final_ln)
-    emb = t.projection(pooled)
+    emb = _linear(pooled, t.projection)
     return l2_normalize(emb) if normalize else emb
+
+
+def forward(
+    model: CLIP, input_ids: torch.Tensor, pixels: torch.Tensor, compute_dtype=None,
+    remat: bool = False, remat_policy: str = "",
+):
+    """The contrastive forward: (image_emb, text_emb, logit_scale), the
+    embeddings l2-normalized in the compute dtype, the scale exp(logit_scale)
+    in f32 (``image_search_tpu/models/clip.py::forward``)."""
+    img = encode_image(model, pixels, True, compute_dtype, remat, remat_policy)
+    txt = encode_text(model, input_ids, True, compute_dtype, remat, remat_policy)
+    return img, txt, torch.exp(model.logit_scale.float())

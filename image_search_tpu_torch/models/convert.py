@@ -1,15 +1,17 @@
 """Weights for the port: the reference's checkpoint file, its parameter
 pytree, and seeded random demo weights.
 
-- :func:`load_checkpoint` reads the file ``image_search_tpu.models.convert.
-  save_checkpoint`` writes (safetensors: an 8-byte little-endian header
-  length, a JSON header, raw little-endian buffers; ``/``-joined keys, stacked
-  ``[L, ...]`` block tensors, the ``CLIPConfig`` JSON in the metadata) with
-  json and numpy alone -- the ``safetensors`` package is not needed.
+- :func:`load_checkpoint` reads, and :func:`save_checkpoint` writes, the file
+  of ``image_search_tpu.models.convert.save_checkpoint`` (safetensors: an
+  8-byte little-endian header length, a JSON header, raw little-endian
+  buffers; ``/``-joined keys, stacked ``[L, ...]`` block tensors, the
+  ``CLIPConfig`` JSON in the metadata) with json and numpy alone -- the
+  ``safetensors`` package is not needed.
 - :func:`params_from_jax` turns the reference's parameter pytree (numpy
-  arrays) into the state of ``models.clip.CLIP``. This is the one place
-  layouts change: the reference multiplies ``x @ w`` with ``w`` as
-  ``[in, out]``; ``nn.Linear`` holds ``[out, in]``.
+  arrays) into the state of ``models.clip.CLIP``, and :func:`params_to_jax`
+  turns a model back. This is the one place layouts change: the reference
+  multiplies ``x @ w`` with ``w`` as ``[in, out]``; ``nn.Linear`` holds
+  ``[out, in]``.
 - :func:`init_params` makes the demo-mode random weights from a
   ``torch.Generator``, with the reference's distributions.
 """
@@ -17,6 +19,7 @@ pytree, and seeded random demo weights.
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Dict
 
@@ -30,6 +33,7 @@ _ST_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64,
     "I32": np.int32, "I16": np.int16, "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_,
 }
+CHECKPOINT_FORMAT = "image_search_tpu.v1"
 
 
 def read_safetensors(path: str):
@@ -63,65 +67,127 @@ def _unflatten(flat) -> dict:
     return out
 
 
+def write_safetensors(path: str, flat: Dict[str, np.ndarray], metadata: Dict[str, str]) -> None:
+    """{key: numpy array} -> a safetensors file, buffers in key order. Every
+    buffer is written C-contiguous: a transposed view would otherwise be
+    written in its memory order (``image_search_tpu/models/convert.py:143``)."""
+    header: dict = {"__metadata__": metadata}
+    bufs, offset = [], 0
+    for key in sorted(flat):
+        arr = np.ascontiguousarray(flat[key])
+        code = next(c for c, t in _ST_DTYPES.items() if np.dtype(t) == arr.dtype)
+        raw = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[key] = {"dtype": code, "shape": list(arr.shape), "data_offsets": [offset, offset + len(raw)]}
+        bufs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)  # the format pads the header to 8 bytes
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in bufs:
+            f.write(raw)
+
+
+def save_checkpoint(path: str, params, cfg: CLIPConfig) -> None:
+    """The reference's checkpoint file from reference-layout params (nested
+    dicts of arrays, e.g. :func:`params_to_jax`)."""
+    def flatten(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flatten(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_safetensors(
+        path, dict(flatten(params)), {"config": cfg.to_json(), "format": CHECKPOINT_FORMAT}
+    )
+
+
 def load_checkpoint(path: str):
     """Returns (reference-layout params as nested numpy dicts, cfg)."""
     flat, meta = read_safetensors(path)
     return _unflatten(flat), CLIPConfig.from_json(meta["config"])
 
 
-def _blocks_from_jax(blocks, prefix: str, num_layers: int) -> Dict[str, np.ndarray]:
-    out = {}
-    for i in range(num_layers):
-        p = f"{prefix}.blocks.{i}."
-        g = lambda name: np.asarray(blocks[name][i])
-        out |= {
-            p + "ln1.weight": g("ln1_scale"), p + "ln1.bias": g("ln1_bias"),
-            p + "qkv.weight": g("qkv_w").T, p + "qkv.bias": g("qkv_b"),
-            p + "o.weight": g("o_w").T, p + "o.bias": g("o_b"),
-            p + "ln2.weight": g("ln2_scale"), p + "ln2.bias": g("ln2_bias"),
-            p + "fc.weight": g("fc_w").T, p + "fc.bias": g("fc_b"),
-            p + "proj.weight": g("proj_w").T, p + "proj.bias": g("proj_b"),
-        }
-    return out
+_TOP_KEYS = (  # reference path, port name, transposed
+    ("text/token_embedding", "text.token_embedding", False),
+    ("text/position_embedding", "text.position_embedding", False),
+    ("text/final_ln_scale", "text.final_ln.weight", False),
+    ("text/final_ln_bias", "text.final_ln.bias", False),
+    ("text/projection", "text.projection.weight", True),
+    # [p*p*C, D] in (ph, pw, c) order -> Linear [D, p*p*C], same order
+    ("vision/patch_embedding", "vision.patch_embedding.weight", True),
+    ("vision/class_embedding", "vision.class_embedding", False),
+    ("vision/position_embedding", "vision.position_embedding", False),
+    ("vision/pre_ln_scale", "vision.pre_ln.weight", False),
+    ("vision/pre_ln_bias", "vision.pre_ln.bias", False),
+    ("vision/post_ln_scale", "vision.post_ln.weight", False),
+    ("vision/post_ln_bias", "vision.post_ln.bias", False),
+    ("vision/projection", "vision.projection.weight", True),
+    ("logit_scale", "logit_scale", False),
+)
+_BLOCK_KEYS = (  # reference name under <tower>/blocks, port name, transposed
+    ("ln1_scale", "ln1.weight", False), ("ln1_bias", "ln1.bias", False),
+    ("qkv_w", "qkv.weight", True), ("qkv_b", "qkv.bias", False),
+    ("o_w", "o.weight", True), ("o_b", "o.bias", False),
+    ("ln2_scale", "ln2.weight", False), ("ln2_bias", "ln2.bias", False),
+    ("fc_w", "fc.weight", True), ("fc_b", "fc.bias", False),
+    ("proj_w", "proj.weight", True), ("proj_b", "proj.bias", False),
+)
+
+
+def _towers(cfg: CLIPConfig):
+    return (("text", cfg.text.num_layers), ("vision", cfg.vision.num_layers))
 
 
 def params_from_jax(params, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
     """Reference parameter pytree (numpy leaves) -> ``CLIP`` state dict (f32)."""
     if cfg.arch != "clip":
         raise NotImplementedError(f"arch {cfg.arch!r}: only CLIP is ported so far")
-    t, v = params["text"], params["vision"]
-    flat = {
-        "text.token_embedding": t["token_embedding"],
-        "text.position_embedding": t["position_embedding"],
-        "text.final_ln.weight": t["final_ln_scale"],
-        "text.final_ln.bias": t["final_ln_bias"],
-        "text.projection.weight": np.asarray(t["projection"]).T,
-        # [p*p*C, D] in (ph, pw, c) order -> Linear [D, p*p*C], same order
-        "vision.patch_embedding.weight": np.asarray(v["patch_embedding"]).T,
-        "vision.class_embedding": v["class_embedding"],
-        "vision.position_embedding": v["position_embedding"],
-        "vision.pre_ln.weight": v["pre_ln_scale"],
-        "vision.pre_ln.bias": v["pre_ln_bias"],
-        "vision.post_ln.weight": v["post_ln_scale"],
-        "vision.post_ln.bias": v["post_ln_bias"],
-        "vision.projection.weight": np.asarray(v["projection"]).T,
-        "logit_scale": params["logit_scale"],
-    }
-    flat |= _blocks_from_jax(t["blocks"], "text", cfg.text.num_layers)
-    flat |= _blocks_from_jax(v["blocks"], "vision", cfg.vision.num_layers)
+    flat = {}
+    for ref, port, tr in _TOP_KEYS:
+        node = params
+        for part in ref.split("/"):
+            node = node[part]
+        flat[port] = np.asarray(node).T if tr else node
+    for tower, n in _towers(cfg):
+        blocks = params[tower]["blocks"]
+        for i in range(n):
+            for ref, port, tr in _BLOCK_KEYS:
+                a = np.asarray(blocks[ref][i])
+                flat[f"{tower}.blocks.{i}.{port}"] = a.T if tr else a
     return {
         k: torch.from_numpy(np.array(a, np.float32, order="C"))
         for k, a in flat.items()
     }
 
 
-def build_model(cfg: CLIPConfig, state: Dict[str, torch.Tensor], device, dtype) -> CLIP:
-    """A ``CLIP`` holding ``state`` on ``device`` in ``dtype`` (no default init)."""
+def params_to_jax(model: CLIP):
+    """``CLIP`` -> the reference's parameter pytree: nested dicts of f32
+    C-contiguous numpy arrays, ``[in, out]`` weights, blocks stacked to
+    ``[L, ...]`` (the inverse of :func:`params_from_jax`)."""
+    sd = {k: t.detach().float().cpu().numpy() for k, t in model.state_dict().items()}
+    c = lambda a, tr: np.ascontiguousarray(a.T if tr else a, np.float32)
+    flat = {ref: c(sd[port], tr) for ref, port, tr in _TOP_KEYS}
+    for tower, n in _towers(model.cfg):
+        for ref, port, tr in _BLOCK_KEYS:
+            flat[f"{tower}/blocks/{ref}"] = np.stack([c(sd[f"{tower}.blocks.{i}.{port}"], tr) for i in range(n)])
+    return _unflatten(flat)
+
+
+def build_model(
+    cfg: CLIPConfig, state: Dict[str, torch.Tensor], device, dtype, trainable: bool = False
+) -> CLIP:
+    """A ``CLIP`` holding ``state`` on ``device`` in ``dtype`` (no default
+    init). Frozen for serving; ``trainable=True`` leaves every parameter
+    requiring grad, on a copy of ``state`` (training updates it in place)."""
     with torch.device("meta"):
         model = CLIP(cfg)
-    state = {k: t.to(device=device, dtype=dtype) for k, t in state.items()}
+    state = {k: t.to(device=device, dtype=dtype, copy=trainable) for k, t in state.items()}
     model.load_state_dict(state, assign=True, strict=True)
-    return model.eval().requires_grad_(False)
+    return model.train() if trainable else model.eval().requires_grad_(False)
 
 
 def _tower_blocks(normal, prefix: str, tc) -> Dict[str, torch.Tensor]:

@@ -1,2 +1,3 @@
-"""Host-side utilities of the port: ``metrics`` (counters, gauges and latency
-windows), a copy of the JAX package's ``utils/metrics.py``."""
+"""Host-side utilities of the port, copies of the JAX package's own:
+``metrics`` (counters, gauges and latency windows, ``utils/metrics.py``) and
+``eval`` (retrieval recall@k and median rank, ``utils/eval.py``)."""

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the towers' launches through them.
+version, and the towers' and the train step's launches through them.
 
 Needs an NVIDIA GPU and nvcc: every test here is marked ``cuda`` and skips
 (decided in a fixture, at run time) where ``torch.cuda.is_available()`` is
@@ -15,7 +15,12 @@ import torch.nn.functional as F
 
 from image_search_tpu_torch.config import CLIPConfig, TextConfig, VisionConfig
 from image_search_tpu_torch.ops import blockmax
-from image_search_tpu_torch.ops.attention import attention_reference, fused_attention
+from image_search_tpu_torch.ops.attention import (
+    attention_bwd_reference,
+    attention_reference,
+    fused_attention,
+    fused_attention_bwd,
+)
 from image_search_tpu_torch.ops.score_stream import (
     NEG_INF,
     query_chunks,
@@ -59,6 +64,47 @@ def test_attention_kernel_rejects_what_it_cannot_take(dev):
     y = torch.zeros(1, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head dim"):
         fused_attention(y, y, y, 4)  # Hd = 16
+
+
+@pytest.mark.parametrize(
+    "B,S,H,causal",
+    [(64, 257, 16, False), (64, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False), (3, 33, 2, True), (2, 200, 4, True)],
+)
+def test_attention_bwd_kernel_matches_plain(dev, B, S, H, causal):
+    """B5 at the train step's shapes (vision and text at batch 64) and odd
+    ones: within 2e-2 x max|plain| of the bf16 plain version, and per (batch,
+    head) cosine >= 0.999 against the f32 plain version."""
+    g = torch.Generator(device=dev).manual_seed(B * S + 1)
+    D = H * 64
+    qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).bfloat16()
+    q = qkv[..., :D] * 0.125
+    k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    go = torch.randn(B, S, D, generator=g, device=dev).bfloat16()
+    n0 = fused_attention_bwd.launches
+    got = fused_attention_bwd(q, k, v, go, H, causal)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == n0 + 1
+    want = attention_bwd_reference(q, k, v, go, H, causal)
+    want32 = attention_bwd_reference(q.float(), k.float(), v.float(), go.float(), H, causal)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, want32):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous(), name
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item(), name
+        heads = lambda t: t.float().reshape(B, S, H, 64).permute(0, 2, 1, 3).reshape(B * H, S * 64)
+        a, c = heads(a), heads(c)
+        live = c.norm(dim=-1) > 0  # at S = 1 the softmax has no gradient: dq = dk = 0
+        assert torch.equal(a[~live], torch.zeros_like(a[~live])), name
+        if live.any():
+            assert F.cosine_similarity(a[live], c[live], dim=-1).min() >= 0.999, name
+
+
+def test_attention_bwd_kernel_rejects_what_it_cannot_take(dev):
+    x = torch.zeros(1, 8, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_attention_bwd(x, x, x, x.float(), 2)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        fused_attention_bwd(x, x, x, x, 8)  # Hd = 16
+    with pytest.raises(ValueError, match="shape"):
+        fused_attention_bwd(x, x, x, torch.zeros(1, 9, 128, device=dev, dtype=torch.bfloat16), 2)
 
 
 @pytest.mark.parametrize("N,D,B,pens", [(100_003, 768, 1, False), (100_003, 768, 8, True), (4099, 768, 32, True), (777, 12, 3, True)])
@@ -186,3 +232,40 @@ def test_towers_launch_the_kernel_once_per_layer_but_the_last(dev):
     assert (n1 - n0, n2 - n1) == (3, 2)
     assert F.cosine_similarity(img.float().cpu(), encode_image(cpu, px), dim=-1).min() >= 0.99
     assert F.cosine_similarity(txt.float().cpu(), encode_text(cpu, ids), dim=-1).min() >= 0.99
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_launches_b5_once_per_layer_but_the_last(dev, remat):
+    """A narrow CLIP whose heads are 64 wide, f32 master weights and bf16
+    compute on the card: every attention core's backward goes through B5
+    (all layers under remat, whose recompute runs B1 a second time), and the
+    gradients stay close to the f32 CPU step of the same weights."""
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.train.contrastive import adamw, make_train_step
+
+    cfg = CLIPConfig(
+        name="narrow-64",
+        text=TextConfig(hidden_size=128, num_layers=3, num_heads=2, vocab_size=300, context_length=20, eos_token_id=299),
+        vision=VisionConfig(hidden_size=128, num_layers=4, num_heads=2, image_size=56, patch_size=14),
+        projection_dim=32,
+    )
+    state = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    px = torch.randn(4, 56, 56, 3, generator=torch.Generator().manual_seed(1))
+    ids = torch.randint(0, 299, (4, 20), generator=torch.Generator().manual_seed(2))
+    ids[:, 9:] = 299
+    grads = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        init_fn, step_fn = make_train_step(
+            cfg, adamw(1e-4), dtype, remat, where, remat_policy="dots_with_no_batch_dims_saveable"
+        )
+        s = init_fn(build_model(cfg, state, where, torch.float32, trainable=True))
+        n_fwd, n_bwd = fused_attention.launches, fused_attention_bwd.launches
+        s, m = step_fn(s, ids, px)
+        assert torch.isfinite(m["loss"])
+        if where == dev:
+            torch.cuda.synchronize()
+            L = cfg.vision.num_layers + cfg.text.num_layers - (0 if remat else 2)
+            assert fused_attention_bwd.launches - n_bwd == L
+            assert fused_attention.launches - n_fwd == (2 * L if remat else L)
+        grads[where.type] = torch.cat([p.grad.float().cpu().flatten() for p in s.model.parameters()])
+    assert F.cosine_similarity(grads["cuda"], grads["cpu"], dim=0) >= 0.99

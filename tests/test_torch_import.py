@@ -23,6 +23,7 @@ PORT_MODULES = [
     "image_search_tpu_torch.tokenizer",
     "image_search_tpu_torch.tokenizer.bpe",
     "image_search_tpu_torch.utils.metrics",
+    "image_search_tpu_torch.utils.eval",
     "image_search_tpu_torch.ops.attention",
     "image_search_tpu_torch.ops.blockmax",
     "image_search_tpu_torch.ops.score_stream",
@@ -42,6 +43,11 @@ PORT_MODULES = [
     "image_search_tpu_torch.server.args",
     "image_search_tpu_torch.server.engine",
     "image_search_tpu_torch.server.app",
+    "image_search_tpu_torch.train",
+    "image_search_tpu_torch.train.contrastive",
+    "image_search_tpu_torch.train.checkpoint",
+    "image_search_tpu_torch.train.eval",
+    "image_search_tpu_torch.train.finetune",
 ]
 
 
@@ -144,7 +150,21 @@ def _copy_walk(tmp_path):
     assert sorted(find_images(str(tmp_path))) == sorted(ref_find(str(tmp_path)))
 
 
-@pytest.mark.parametrize("module", ["config", "tokenizer", "store", "args_and_wire", "walk"])
+def _copy_eval():
+    from image_search_tpu.utils.eval import retrieval_metrics as ref
+    from image_search_tpu_torch.utils.eval import retrieval_metrics
+
+    rng = np.random.default_rng(1)
+    img = rng.normal(size=(12, 8)).astype(np.float32)
+    for txt in (img, np.roll(img, 1, axis=0), img + rng.normal(size=img.shape).astype(np.float32)):
+        assert retrieval_metrics(img, txt, (1, 2, 5)) == ref(img, txt, (1, 2, 5))
+    for bad in ((img, img[:3]), (img[:0], img[:0])):
+        for fn in (retrieval_metrics, ref):
+            with pytest.raises(ValueError):
+                fn(*bad)
+
+
+@pytest.mark.parametrize("module", ["config", "tokenizer", "store", "args_and_wire", "walk", "eval"])
 def test_copies_behave_as_the_jax_packages(module, tmp_path):
     fn = globals()["_copy_" + module]
     fn(tmp_path) if fn.__code__.co_argcount else fn()
@@ -164,11 +184,12 @@ def test_kernel_library_is_not_built_at_import():
     assert rel[:2] == ["build", "torch_kernels"] and rel[-1] == "libisx_kernels.so"
 
 
-@pytest.mark.parametrize("name", ["attention.cu", "score_stream.cu", "blockmax.cu"])
+@pytest.mark.parametrize("name", ["attention.cu", "attention_bwd.cu", "score_stream.cu", "blockmax.cu"])
 def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
     with open(os.path.join(REPO, "image_search_tpu_torch", "csrc", name)) as f:
         src = f.read()
     want = {
-        "attention.cu": "_attn_kernel_grouped", "score_stream.cu": "_kernel_pen", "blockmax.cu": "_values_kernel",
+        "attention.cu": ("_attn_kernel_grouped",), "attention_bwd.cu": ("_attn_bwd_kernel", "attention.py:122"),
+        "score_stream.cu": ("_kernel_pen",), "blockmax.cu": ("_values_kernel",),
     }[name]
-    assert want in src and 'extern "C"' in src and "cudaGetLastError" in src
+    assert all(w in src for w in want) and 'extern "C"' in src and "cudaGetLastError" in src
