@@ -13,17 +13,23 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
 3. each CUDA kernel against its plain PyTorch version at the main paths'
    shapes, on the card, with CUDA-event times for both, the least time the
    card could take for the same work, and the time of one PyTorch call that
-   computes the same function where there is one: attention (B1), int8
-   scores at B=1, 8 and the legacy duplicate scan's 1024 (B2), the block-pair
-   mask at 262,144 x 262,144 rows, the certified route's one call, and at
-   16,384 x 262,144 from row block 512 (B3), and values at 65,536 x
-   1,048,576 (B4);
+   computes the same function where there is one: attention by its four
+   routes (B1 and B1p at B=160 S=257 and B=32 S=77 causal, B6 split at
+   B=160 S=257 and padded at Sp=264), int8 scores at B=1, 8 and the legacy
+   duplicate scan's 1024 (B2), the block-pair mask at 262,144 x 262,144
+   rows, the certified route's one call, and at 16,384 x 262,144 from row
+   block 512 (B3), and values at 65,536 x 1,048,576 (B4);
 4. ViT-L/14 at full width (seeded random bf16 weights): preprocess + vision
    tower at B=160 and the text tower at B=8 through the attention kernel,
    checked against the same weights' f32 forward on the CPU, and img/s;
+   then the vision tower under each other attention route
+   (``ISX_ATTN_PIPE=0``: B1p, ``ISX_ATTN_SPLIT=1``: B6, ``ISX_VIT_SPAD=264``:
+   B6 on a sequence padded end to end), each held against the same f32
+   forward and timed in turns with the default route;
 5. the HTTP server on 64 synthetic BMP photos with an int8 index: /scan,
    /search with and without Rocchio feedback (checked against the plain
-   scoring of the same index), /health;
+   scoring of the same index), /health; again on fresh servers under
+   ``ISX_ATTN_PIPE=0`` (B1p, never B1) and ``ISX_VIT_SPAD=264``;
 6. GET /duplicates on the same server by its three routes: legacy on the
    photos plus byte-identical copies (groups against a brute-force f32 pair
    set), certified on 262,144 concentrated 768-d rows through ?async=1 and
@@ -31,7 +37,9 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    flat rows (every planted pair found, every emitted pair's score checked);
 7. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
    B=8) on the card against the same step in f32 on the CPU: loss and
-   gradient cosines, and B1/B5 launches per step;
+   gradient cosines, and B1/B5 launches per step; the same card step under
+   ``ISX_ATTN_PIPE=0`` and ``ISX_ATTN_SPLIT=1`` (loss within 1e-2 of the
+   default route's, B5 on every backward);
 8. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
    with captions, batch 64, 6 steps, with ``--eval-dir`` and
    ``--checkpoint-dir``, once without and once with ``--remat``: the loss
@@ -39,13 +47,15 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    counts; ms/step, pairs/s, peak memory;
 9. a ``torch.profiler`` split of one batch-64 train step's device time.
 
-The second-to-last line is a JSON object describing every kernel of the
-paths; the last line is ``{"ok": true, "device": {...}}``. Without a GPU the
+Each phase sets the attention route switches it needs and restores them
+after. The second-to-last line is a JSON object describing every kernel of
+the paths; the last line is ``{"ok": true, "device": {...}}``. Without a GPU the
 script exits non-zero before any phase and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -131,6 +141,32 @@ def bound(nbytes: float, ops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the towers' attention routes beyond the default (grouped, B1): the switches
+# that select each (read by ops.attention.attention_route at every forward)
+# and the entry point the vision tower then launches in every layer but the last
+ROUTE_SWITCHES = {
+    "packed": ({"ISX_ATTN_PIPE": "0"}, "fused_attention_packed"),
+    "split": ({"ISX_ATTN_SPLIT": "1"}, "fused_attention_split"),
+    "padded": ({"ISX_VIT_SPAD": "264"}, "fused_attention_split_padded"),
+}
+ROUTE_ENV = ("ISX_ATTN_PIPE", "ISX_ATTN_SPLIT", "ISX_VIT_SPAD", "ISX_VIT_SPAD_CPU", "ISX_ATTN_BF16SM")
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """Sets route switches for one phase and restores the environment after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def upper_block_pairs(r: int, n: int, row_block0: int) -> int:
     """Block pairs on or above the diagonal: what B3 and B4 compute."""
     ncb = n // 128
@@ -195,8 +231,66 @@ def check_attention_bwd(torch, gen, dev, B, S, H, causal):
     )
 
 
+def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_real=None):
+    """One attention forward kernel against its plain version on the tower's
+    layout (q scaled and contiguous, k and v strided column blocks of one
+    fused qkv projection), timed beside scaled_dot_product_attention on the
+    same inputs. ``core``: "grouped" (B1), "packed" (B1p), "split" (B6 on
+    unpadded operands) or "padded" (B6 on operands padded to S rows, keys
+    >= s_real masked; SDPA gets the same boolean key mask)."""
+    from image_search_tpu_torch.ops import attention as A
+
+    F = torch.nn.functional
+    D, Hd = H * 64, 64
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = qkv[..., :D] * 0.125
+    k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    split = lambda t: t.reshape(B, -1, H, Hd)
+    if core == "grouped":
+        kernel = lambda: A.fused_attention(q, k, v, H, causal)
+        plain = lambda *t: A.attention_reference(*map(split, t), causal).reshape(B, S, D)
+    elif core == "packed":
+        kernel = lambda: A.fused_attention_packed(q, k, v, H, causal)
+        plain = lambda *t: A.attention_packed_reference(*map(split, t), causal).reshape(B, S, D)
+    elif core == "split":  # the reference's pad-and-slice, around the padded plain version
+        s_main = (S // 128) * 128
+        pad = lambda t: split(F.pad(t, (0, 0, 0, s_main + 8 - S)))
+        kernel = lambda: A.fused_attention_split(q, k, v, H)
+        plain = lambda *t: A.attention_split_reference(*map(pad, t), S)[:, :S].reshape(B, S, D)
+    else:
+        kernel = lambda: A.fused_attention_split_padded(q, k, v, H, s_real)
+        plain = lambda *t: A.attention_split_reference(*map(split, t), s_real).reshape(B, S, D)
+    got = kernel()
+    torch.cuda.synchronize()
+    want, want32 = plain(q, k, v), plain(q.float(), k.float(), v.float())
+    err = (got.float() - want.float()).abs().max().item()
+    cos = F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min().item()
+    shape = f"B={B} S={S} H={H} Hd=64 causal={causal}" + (f" s_real={s_real}" if s_real else "")
+    check(err <= ATTN_MAX_ABS, f"attention {core} {shape}: max abs err {err} > {ATTN_MAX_ABS}")
+    check(cos >= ATTN_MIN_COS, f"attention {core} {shape}: min cosine {cos} < {ATTN_MIN_COS}")
+    k_ms, p_ms = ab_ms(torch, lambda: plain(q, k, v), kernel, iters=10)
+    heads = lambda t: split(t).transpose(1, 2)  # [B, H, S, Hd] views
+    keys = s_real or S
+    mask = None if s_real is None else (torch.arange(S, device=dev) < s_real)[None, None, None, :]
+    lib_ms = statistics.median(cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v), attn_mask=mask, is_causal=causal, scale=1.0),
+        iters=10,
+    ))
+    pairs = S * (S + 1) // 2 if causal else S * keys  # the (query, key) pairs the data needs
+    b_ms, b_by = bound(2 * B * (S + keys) * D * 2, 4 * B * H * pairs * Hd, BF16_FLOP_PER_S)
+    name = {"grouped": "B1 attention", "packed": "B1p attention packed"}.get(core, f"B6 attention {core}")
+    print(
+        f"{name} {shape}: max_abs_err={err} min_cos_vs_f32={cos} kernel_ms={k_ms} plain_ms={p_ms} "
+        f"sdpa_ms={lib_ms} bound_ms={b_ms} ({b_by})" + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
+    )
+    return dict(
+        max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by, shape=shape,
+    )
+
+
 def phase_kernels(torch, gen, dev):
-    from image_search_tpu_torch.ops.attention import attention_reference, fused_attention
     from image_search_tpu_torch.ops.blockmax import (
         blockpair_mask, blockpair_mask_reference, blockpair_values, blockpair_values_reference,
     )
@@ -206,48 +300,12 @@ def phase_kernels(torch, gen, dev):
 
     F = torch.nn.functional
     res = {}
-    for B, S, H, causal in ((160, 257, 16, False), (32, 77, 12, True)):
-        D, Hd = H * 64, 64
-        # the tower's layout: q scaled and contiguous, k and v strided column
-        # blocks of one fused qkv projection
-        qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
-        q = qkv[..., :D] * 0.125
-        k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
-        got = fused_attention(q, k, v, H, causal)
-        torch.cuda.synchronize()
-        split = lambda t: t.reshape(B, S, H, Hd)
-        want = attention_reference(split(q), split(k), split(v), causal).reshape(B, S, D)
-        want32 = attention_reference(
-            split(q).float(), split(k).float(), split(v).float(), causal
-        ).reshape(B, S, D)
-        err = (got.float() - want.float()).abs().max().item()
-        cos = F.cosine_similarity(
-            got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1
-        ).min().item()
-        check(err <= ATTN_MAX_ABS, f"attention B={B} S={S}: max abs err {err} > {ATTN_MAX_ABS}")
-        check(cos >= ATTN_MIN_COS, f"attention B={B} S={S}: min cosine {cos} < {ATTN_MIN_COS}")
-        k_ms, p_ms = ab_ms(
-            torch,
-            lambda: attention_reference(split(q), split(k), split(v), causal),
-            lambda: fused_attention(q, k, v, H, causal),
-            iters=10,
-        )
-        heads = lambda t: split(t).transpose(1, 2)  # [B, H, S, Hd] views
-        lib_ms = statistics.median(cuda_ms(
-            torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal, scale=1.0),
-            iters=10,
-        ))
-        b_ms, b_by = bound(4 * B * S * D * 2, 4 * B * H * S * S * Hd, BF16_FLOP_PER_S)
-        res[("attention", S)] = dict(
-            max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by, shape=f"B={B} S={S} H={H} Hd=64 causal={causal}",
-        )
-        print(
-            f"B1 attention B={B} S={S} H={H} Hd=64 causal={causal}: max_abs_err={err} "
-            f"min_cos_vs_f32={cos} kernel_ms={k_ms} plain_ms={p_ms} sdpa_ms={lib_ms} "
-            f"bound_ms={b_ms} ({b_by})" + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
-        )
-        del qkv, q, k, v, got, want, want32
+    for core in ("grouped", "packed"):
+        for B, S, H, causal in ((160, 257, 16, False), (32, 77, 12, True)):
+            res[(core, S)] = check_attention_fwd(torch, gen, dev, core, B, S, H, causal)
+    res[("split", 257)] = check_attention_fwd(torch, gen, dev, "split", 160, 257, 16)
+    res[("padded", 264)] = check_attention_fwd(torch, gen, dev, "padded", 160, 264, 16, s_real=257)
+    torch.cuda.empty_cache()
 
     for B, S, H, causal in ((TRAIN_BATCH, 257, 16, False), (TRAIN_BATCH, 77, 12, True)):
         res[("attention_bwd", S)] = check_attention_bwd(torch, gen, dev, B, S, H, causal)
@@ -358,7 +416,6 @@ def phase_towers(torch, gen, dev, smi):
     from image_search_tpu_torch.config import get_config
     from image_search_tpu_torch.models.clip import encode_image, encode_text
     from image_search_tpu_torch.models.convert import build_model, init_params
-    from image_search_tpu_torch.ops.attention import fused_attention
     from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
     from image_search_tpu_torch.tokenizer import HashTokenizer
 
@@ -372,20 +429,23 @@ def phase_towers(torch, gen, dev, smi):
     u8_d, A_h_d, A_w_d = (t.to(dev) for t in (u8, A_h, A_w))
     tok = HashTokenizer(cfg.text.vocab_size, cfg.text.context_length, eos_id=cfg.text.eos_token_id)
     ids = torch.from_numpy(tok([f"a photo of thing number {i}" for i in range(8)]).astype(np.int64))
+    L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
 
     def vision():
         return encode_image(model, fused_preprocess(u8_d, A_h_d, A_w_d, out_dtype=torch.bfloat16))
 
-    with torch.inference_mode():
-        n0 = fused_attention.launches
-        img = vision()
-        n1 = fused_attention.launches
-        txt = encode_text(model, ids.to(dev))
-        n2 = fused_attention.launches
+    def launched(fn):
+        """fn()'s result and the attention forward launches it made, by entry point."""
+        _reset_counts()
+        out = fn()
         torch.cuda.synchronize()
-        L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
-        check(n1 - n0 == L_v, f"vision forward launched the attention kernel {n1 - n0} times, want {L_v}")
-        check(n2 - n1 == L_t, f"text forward launched the attention kernel {n2 - n1} times, want {L_t}")
+        return out, {k: v for k, v in _read_counts().items() if v and k != "fused_attention_bwd"}
+
+    with torch.inference_mode():
+        img, n_img = launched(vision)
+        txt, n_txt = launched(lambda: encode_text(model, ids.to(dev)))
+        check(n_img == {"fused_attention": L_v}, f"vision forward launched {n_img}, want B1 {L_v} times")
+        check(n_txt == {"fused_attention": L_t}, f"text forward launched {n_txt}, want B1 {L_t} times")
         check(img.shape == (160, cfg.projection_dim) and bool(torch.isfinite(img).all()), "bad image embeddings")
         check(txt.shape == (8, cfg.projection_dim) and bool(torch.isfinite(txt).all()), "bad text embeddings")
 
@@ -394,22 +454,49 @@ def phase_towers(torch, gen, dev, smi):
         txt32 = encode_text(cpu, ids[:4])
         cos_i = F.cosine_similarity(img[:4].float().cpu(), img32, dim=-1).min().item()
         cos_t = F.cosine_similarity(txt[:4].float().cpu(), txt32, dim=-1).min().item()
-        print(f"towers: vision launches/forward={n1 - n0} text launches/forward={n2 - n1}")
+        print(f"towers: vision launches/forward={n_img} text launches/forward={n_txt}")
         print(f"towers: bf16 card vs f32 CPU min cosine: image={cos_i} text={cos_t} (bound {TOWER_MIN_COS})")
         check(cos_i >= TOWER_MIN_COS, f"image embeddings: cosine {cos_i} < {TOWER_MIN_COS}")
         check(cos_t >= TOWER_MIN_COS, f"text embeddings: cosine {cos_t} < {TOWER_MIN_COS}")
-        del cpu, img32, txt32
+        del cpu
 
         ms = statistics.median(cuda_ms(torch, vision, iters=5))
         txt_ms = statistics.median(cuda_ms(torch, lambda: encode_text(model, ids.to(dev)), iters=5))
-    ips = 160 / (ms * 1e-3)
-    print(
-        f"towers: ViT-L/14 bf16 preprocess+vision B=160: {ms} ms/batch = {ips} img/s; "
-        f"text tower B=8: {txt_ms} ms  [{smi}]"
-    )
+        ips = 160 / (ms * 1e-3)
+        print(
+            f"towers: ViT-L/14 bf16 preprocess+vision B=160: {ms} ms/batch = {ips} img/s; "
+            f"text tower B=8: {txt_ms} ms  [{smi}]"
+        )
+
+        # the vision tower under each other route: launches, cosine against
+        # the same f32 CPU tower, and img/s against the default route, timed
+        # in turns (default, route, route, default)
+        routes = {}
+        for route, (env, entry) in ROUTE_SWITCHES.items():
+            with switches(env):
+                got, n = launched(vision)
+                check(n == {entry: L_v}, f"vision on the {route} route launched {n}, want {entry} {L_v} times")
+                cos = F.cosine_similarity(got[:4].float().cpu(), img32, dim=-1).min().item()
+                check(cos >= TOWER_MIN_COS, f"image embeddings, {route} route: cosine {cos} < {TOWER_MIN_COS}")
+                if route == "packed":
+                    _, n_t = launched(lambda: encode_text(model, ids.to(dev)))
+                    check(n_t == {entry: L_t}, f"text on the packed route launched {n_t}, want {entry} {L_t} times")
+            base = cuda_ms(torch, vision, iters=5)
+            with switches(env):
+                r_ms = cuda_ms(torch, vision, iters=5) + cuda_ms(torch, vision, iters=5)
+            base += cuda_ms(torch, vision, iters=5)
+            r_ms, base = statistics.median(r_ms), statistics.median(base)
+            routes[route] = {"img_per_s": 160 / (r_ms * 1e-3), "default_img_per_s": 160 / (base * 1e-3),
+                             "ms": r_ms, "default_ms": base, "cos_image": cos}
+            print(
+                f"towers: {route} route {env}: vision launches {n}, cosine vs f32 CPU {cos}; "
+                f"B=160 {r_ms} ms = {160 / (r_ms * 1e-3)} img/s vs default route {base} ms = "
+                f"{160 / (base * 1e-3)} img/s ({(base / r_ms - 1) * 100:+.2f}% img/s)  [{smi}]"
+            )
     del model, state
     torch.cuda.empty_cache()
-    return {"img_per_s": ips, "vision_ms": ms, "text_ms": txt_ms, "cos_image": cos_i, "cos_text": cos_t}
+    return {"img_per_s": ips, "vision_ms": ms, "text_ms": txt_ms, "cos_image": cos_i, "cos_text": cos_t,
+            "routes": routes}
 
 
 def _http(method: str, url: str, body=None):
@@ -443,12 +530,13 @@ def _plain_top(torch, engine, query: str, refs, k: int):
     return v[0].cpu().tolist(), [idx.paths[j] for j in i[0].cpu().tolist()]
 
 
-def phase_server(torch, dev, model: str = "clip-vit-large-patch14"):
+@contextlib.contextmanager
+def _serving(dev, model: str):
+    """The HTTP server over 64 synthetic BMP photos and an empty int8 index,
+    seeded random weights: yields (engine, base URL, media dir, k)."""
     import numpy as np
 
     from image_search_tpu_torch.ingest.decode import write_bmp24
-    from image_search_tpu_torch.ops.attention import fused_attention
-    from image_search_tpu_torch.ops.score_stream import stream_scores_int8
     from image_search_tpu_torch.server.app import make_server, parse_args
     from image_search_tpu_torch.server.engine import SearchEngine
 
@@ -472,62 +560,104 @@ def phase_server(torch, dev, model: str = "clip-vit-large-patch14"):
         server = make_server(engine, "127.0.0.1", 0)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
-        base = f"http://127.0.0.1:{server.server_port}"
         try:
-            fused_attention.launches = 0
-            stream_scores_int8.launches = 0
-            st, scan, scan_ms = _http("GET", base + "/scan")
-            st1, plain, ms1 = _http("POST", base + "/search", {"q": "a red square", "referenced_images": []})
-            marked = [plain["images"][0]["image_path"], plain["images"][5]["image_path"]]
-            st2, fb, ms2 = _http("POST", base + "/search", {"q": "a red square", "referenced_images": marked})
-            st3, health, ms3 = _http("GET", base + "/health")
-            launches = {"attention": fused_attention.launches, "score": stream_scores_int8.launches}
-            torch.cuda.synchronize()
-
-            check(st == 200 and scan["embedded"] == 64 and scan["decode_failures"] == 0, f"/scan: {scan}")
-            k = min(args.k, 64)
-            for name, s, body in (("plain", st1, plain), ("feedback", st2, fb)):
-                check(s == 200 and set(body) == {"images"}, f"/search {name}: status {s}, keys {set(body)}")
-                imgs = body["images"]
-                check(len(imgs) == k, f"/search {name}: {len(imgs)} images, want {k}")
-                for d in imgs:
-                    check(set(d) == {"id", "image_path", "score"}, f"/search {name}: row keys {set(d)}")
-                    check(d["image_path"].startswith("media/"), f"/search {name}: path {d['image_path']}")
-                    check(d["id"] == urllib.parse.quote(d["image_path"], safe=""), f"/search {name}: id {d['id']}")
-            check(st3 == 200 and health["status"] == "ok" and health["corpus"] == 64, f"/health: {health}")
-            check(launches["attention"] > 0 and launches["score"] > 0, f"kernels not on the path: {launches}")
-            check([d["score"] for d in plain["images"]] != [d["score"] for d in fb["images"]],
-                  "feedback did not move the query")
-
-            # the answers against the plain scoring of the same index
-            for name, body, refs in (("plain", plain, []), ("feedback", fb, marked)):
-                want_s, want_p = _plain_top(torch, engine, "a red square", refs, k)
-                got_s = [d["score"] for d in body["images"]]
-                got_p = [engine.to_abs_path(d["image_path"]) for d in body["images"]]
-                check(got_s == want_s, f"/search {name}: scores differ from the plain scoring")
-                distinct = [j for j in range(k) if got_s.count(got_s[j]) == 1]
-                check(all(got_p[j] == want_p[j] for j in distinct), f"/search {name}: ids differ")
-            print(
-                f"server: /scan embedded {scan['embedded']} photos in {scan['seconds']} s = "
-                f"{scan['embedded'] / scan['seconds']} img/s (request {scan_ms} ms); "
-                f"/search plain {ms1} ms, feedback {ms2} ms, /health {ms3} ms"
-            )
-            print(f"server: kernel launches in the /scan + /search run: {launches}")
-            dup = phase_duplicates(torch, dev, engine, base, media)
+            yield engine, f"http://127.0.0.1:{server.server_port}", media, min(args.k, 64)
         finally:
             server.shutdown()
             server.server_close()
             thread.join(timeout=30)
     check(not thread.is_alive(), "server thread did not stop")
+
+
+def _scan_and_search(torch, engine, base: str, k: int):
+    """/scan of the 64 photos, /search plain and with feedback, /health, each
+    answer checked (the /search answers against the plain scoring of the same
+    index). -> (kernel launches of the run, request times)."""
+    _reset_counts()
+    st, scan, scan_ms = _http("GET", base + "/scan")
+    st1, plain, ms1 = _http("POST", base + "/search", {"q": "a red square", "referenced_images": []})
+    marked = [plain["images"][0]["image_path"], plain["images"][5]["image_path"]]
+    st2, fb, ms2 = _http("POST", base + "/search", {"q": "a red square", "referenced_images": marked})
+    st3, health, ms3 = _http("GET", base + "/health")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+
+    check(st == 200 and scan["embedded"] == 64 and scan["decode_failures"] == 0, f"/scan: {scan}")
+    for name, s, body in (("plain", st1, plain), ("feedback", st2, fb)):
+        check(s == 200 and set(body) == {"images"}, f"/search {name}: status {s}, keys {set(body)}")
+        imgs = body["images"]
+        check(len(imgs) == k, f"/search {name}: {len(imgs)} images, want {k}")
+        for d in imgs:
+            check(set(d) == {"id", "image_path", "score"}, f"/search {name}: row keys {set(d)}")
+            check(d["image_path"].startswith("media/"), f"/search {name}: path {d['image_path']}")
+            check(d["id"] == urllib.parse.quote(d["image_path"], safe=""), f"/search {name}: id {d['id']}")
+    check(st3 == 200 and health["status"] == "ok" and health["corpus"] == 64, f"/health: {health}")
+    check(launches["stream_scores_int8"] > 0, f"B2 not on the path: {launches}")
+    check([d["score"] for d in plain["images"]] != [d["score"] for d in fb["images"]],
+          "feedback did not move the query")
+    for name, body, refs in (("plain", plain, []), ("feedback", fb, marked)):
+        want_s, want_p = _plain_top(torch, engine, "a red square", refs, k)
+        got_s = [d["score"] for d in body["images"]]
+        got_p = [engine.to_abs_path(d["image_path"]) for d in body["images"]]
+        check(got_s == want_s, f"/search {name}: scores differ from the plain scoring")
+        distinct = [j for j in range(k) if got_s.count(got_s[j]) == 1]
+        check(all(got_p[j] == want_p[j] for j in distinct), f"/search {name}: ids differ")
+    print(
+        f"server: /scan embedded {scan['embedded']} photos in {scan['seconds']} s = "
+        f"{scan['embedded'] / scan['seconds']} img/s (request {scan_ms} ms); "
+        f"/search plain {ms1} ms, feedback {ms2} ms, /health {ms3} ms"
+    )
+    return launches, {"scan_s": scan["seconds"], "scan_ms": scan_ms, "search_ms": (ms1, ms2)}
+
+
+def _attention_launches(launches):
+    return {k: v for k, v in launches.items() if v and k.startswith("fused_attention") and k != "fused_attention_bwd"}
+
+
+def phase_server(torch, dev, model: str = "clip-vit-large-patch14"):
+    """The default route: /scan + /search (B1 in both towers), then
+    GET /duplicates on the same server."""
+    from image_search_tpu_torch.config import get_config
+
+    cfg = get_config(model)
+    want = {"fused_attention": cfg.vision.num_layers - 1 + cfg.text.num_layers - 1}
+    with _serving(dev, model) as (engine, base, media, k):
+        launches, _ = _scan_and_search(torch, engine, base, k)
+        print(f"server: kernel launches in the /scan + /search run: {launches}")
+        check(_attention_launches(launches) == want, f"/scan + /search launched {launches}, want {want}")
+        dup = phase_duplicates(torch, dev, engine, base, media)
     return launches, dup
 
 
+def phase_server_routes(torch, dev, model: str = "clip-vit-large-patch14"):
+    """/scan + /search on a fresh server under ISX_ATTN_PIPE=0 (B1p in both
+    towers, B1 never) and under ISX_VIT_SPAD=264 (B6's padded entry in the
+    vision tower, B1 in the text tower); the switches are set for the run
+    only."""
+    from image_search_tpu_torch.config import get_config
+
+    cfg = get_config(model)
+    L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
+    res = {}
+    for route, text_entry in (("packed", "fused_attention_packed"), ("padded", "fused_attention")):
+        env, entry = ROUTE_SWITCHES[route]
+        want = {entry: L_v}
+        want[text_entry] = want.get(text_entry, 0) + L_t
+        with switches(env), _serving(dev, model) as (engine, base, _, k):
+            launches, times = _scan_and_search(torch, engine, base, k)
+        print(f"server, {route} route {env}: kernel launches in the /scan + /search run: {launches}")
+        check(_attention_launches(launches) == want, f"{route} route: /scan + /search launched {launches}, want {want}")
+        res[route] = dict(launches=launches, **times)
+    return res
+
+
 def _kernel_counts():
-    from image_search_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
+    from image_search_tpu_torch.ops import attention as A
     from image_search_tpu_torch.ops.blockmax import blockpair_mask, blockpair_values
     from image_search_tpu_torch.ops.score_stream import stream_scores_int8
 
-    return (fused_attention, fused_attention_bwd, stream_scores_int8, blockpair_mask, blockpair_values)
+    return (A.fused_attention, A.fused_attention_packed, A.fused_attention_split, A.fused_attention_split_padded,
+            A.fused_attention_bwd, stream_scores_int8, blockpair_mask, blockpair_values)
 
 
 def _reset_counts():
@@ -807,10 +937,34 @@ def phase_train_grad(torch, dev):
         print(f"train grad check: {tag} step ({dtype}) {time.perf_counter() - t0:.1f} s, loss {loss[tag]}")
         del st, init_fn, step_fn
         torch.cuda.empty_cache()
-    del state
     L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
     check(counts["fused_attention"] == L_v + L_t and counts["fused_attention_bwd"] == L_v + L_t,
           f"train step launches {counts}, want {L_v + L_t} of B1 and of B5")
+
+    # the same step on the card under the packed and split routes: the
+    # route's forward in every layer but the last, B5 for every backward
+    routes = {}
+    for route, text_entry in (("packed", "fused_attention_packed"), ("split", "fused_attention")):
+        env, entry = ROUTE_SWITCHES[route]
+        want = {entry: L_v}
+        want[text_entry] = want.get(text_entry, 0) + L_t
+        with switches(env):
+            init_fn, step_fn = make_train_step(cfg, adamw(1e-5), torch.bfloat16, False, dev)
+            st = init_fn(build_model(cfg, state, dev, torch.float32, trainable=True))
+            _reset_counts()
+            st, metrics = step_fn(st, ids, pixels)
+            torch.cuda.synchronize()
+            n = _read_counts()
+        r_loss = float(metrics["loss"])
+        del st, init_fn, step_fn
+        torch.cuda.empty_cache()
+        print(f"train step, {route} route {env}: loss {r_loss} (default route {loss['card']}, "
+              f"diff {abs(r_loss - loss['card'])}); launches {n}")
+        check(_attention_launches(n) == want and n["fused_attention_bwd"] == L_v + L_t,
+              f"{route} route train step launched {n}, want {want} and B5 {L_v + L_t}")
+        check(abs(r_loss - loss["card"]) <= 1e-2, f"{route} route loss {r_loss} vs default {loss['card']}")
+        routes[route] = {"loss": r_loss, "launches": n}
+    del state
     gc, gg = grads["card"], grads["cpu"]
     names = sorted(gc)
     glob = _cos([gc[n] for n in names], [gg[n] for n in names])
@@ -824,7 +978,8 @@ def phase_train_grad(torch, dev):
     check(all(math.isfinite(x) for x in loss.values()), f"train step losses: {loss}")
     check(glob >= GRAD_MIN_COS, f"global gradient cosine {glob} < {GRAD_MIN_COS}")
     return {"loss_card": loss["card"], "loss_cpu": loss["cpu"], "cos_global": glob,
-            "cos_vision": tower["vision."], "cos_text": tower["text."], "cos_min_tensor": per[0]}
+            "cos_vision": tower["vision."], "cos_text": tower["text."], "cos_min_tensor": per[0],
+            "routes": routes}
 
 
 class _Records(logging.Handler):
@@ -1020,6 +1175,9 @@ def main() -> int:
         except ImportError:
             print(f"optional package {mod}: absent")
     image_search_tpu_torch.check_precision()
+    preset = {k: os.environ.pop(k) for k in ROUTE_ENV if k in os.environ}
+    if preset:
+        print(f"attention route switches cleared (each phase sets its own): {preset}")
     print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32} "
           f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
@@ -1034,6 +1192,7 @@ def main() -> int:
     kern = phase_kernels(torch, gen, dev)
     towers = phase_towers(torch, gen, dev, smi)
     launches, dup = phase_server(torch, dev)
+    served = phase_server_routes(torch, dev)
     grad = phase_train_grad(torch, dev)
     ft = phase_finetune(torch, dev, smi)
     prof = phase_train_profile(torch, dev)
@@ -1049,9 +1208,12 @@ def main() -> int:
 
     print(smi)
     print(json.dumps({"kernels": [
-        entry("fused_attention", "attention.cu", "attention.py:665", launches["attention"],
-              kern[("attention", 257)],
-              max(kern[("attention", 257)]["max_abs_err"], kern[("attention", 77)]["max_abs_err"])),
+        entry("fused_attention", "attention.cu", "attention.py:665", launches["fused_attention"],
+              kern[("grouped", 257)],
+              max(kern[("grouped", 257)]["max_abs_err"], kern[("grouped", 77)]["max_abs_err"])),
+        entry("fused_attention_packed", "attention.cu", "attention.py:29",
+              served["packed"]["launches"]["fused_attention_packed"], kern[("packed", 257)],
+              max(kern[("packed", 257)]["max_abs_err"], kern[("packed", 77)]["max_abs_err"])),
         entry("stream_scores_int8", "score_stream.cu", "score_stream.py:67",
               dup["legacy"]["counts"]["stream_scores_int8"], kern[("score", 1024, False)],
               max(v["max_abs_err"] for key, v in kern.items() if key[0] == "score")),
@@ -1063,7 +1225,11 @@ def main() -> int:
         entry("fused_attention_bwd", "attention_bwd.cu", "attention.py:122",
               ft["plain"]["counts"]["fused_attention_bwd"], kern[("attention_bwd", 257)],
               max(kern[("attention_bwd", 257)]["max_abs_err"], kern[("attention_bwd", 77)]["max_abs_err"])),
+        entry("fused_attention_split_padded", "attention.cu", "attention.py:492",
+              served["padded"]["launches"]["fused_attention_split_padded"], kern[("padded", 264)],
+              max(kern[("padded", 264)]["max_abs_err"], kern[("split", 257)]["max_abs_err"])),
     ], "img_per_s": towers["img_per_s"],
+        "route_img_per_s": {r: v["img_per_s"] for r, v in towers["routes"].items()},
         "train_ms_per_step": ft["plain"]["ms_per_step"], "train_pairs_per_s": ft["plain"]["pairs_per_s"],
         "train_remat_ms_per_step": ft["remat"]["ms_per_step"],
         "train_grad_cos": grad["cos_global"],

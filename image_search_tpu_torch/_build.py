@@ -45,6 +45,9 @@ _SIGNATURES = {
     "isx_attention_fwd": (
         [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _vp], _i,
     ),
+    "isx_attention_fwd_normalized": (
+        [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _vp], _i,
+    ),
     "isx_attention_smem_bytes": ([_i, _i], _sz),
     "isx_attention_bwd": (
         [_vp] * 8 + [_i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _vp], _i,

@@ -8,9 +8,11 @@ weights, so the casts are no-ops; training holds f32 master weights and
 computes in bf16, as the reference's train step does.
 
 - ``encode_image``: patchify as a matmul, class token, pre-LN, blocks
-  ``0..L-2`` through the attention core (``ops.attention``: kernel B1
-  forward, B5 backward), then the CLS-only last block, post-LN and the
-  projection.
+  ``0..L-2`` through the attention core (``ops.attention``: B1, B1p or B6
+  forward by ``attention_route``, B5 backward), then the CLS-only last
+  block, post-LN and the projection. Under ``ISX_VIT_SPAD`` the sequence is
+  padded once after the pre-LN and stays padded through every block (pad
+  keys masked by index, pad rows never read), as the reference's is.
 - ``encode_text``: token + position embedding, blocks ``0..L-2`` causal
   through the core, then the EOS-only last block (pooled at the FIRST EOS
   token), the final LN and the projection.
@@ -27,13 +29,14 @@ maps one to the other.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint
 
-from image_search_tpu_torch.ops.attention import NEG_INF, AttentionCore
+from image_search_tpu_torch.ops.attention import NEG_INF, AttentionCore, attention_route, split_regime
 
 # remat policies (the reference's jax.checkpoint_policies names): "" recomputes
 # everything; the default saves the outputs of matmuls without batch dims
@@ -89,19 +92,24 @@ class Block(nn.Module):
     def mlp(self, x):
         return _linear(_act(_linear(x, self.fc), self.act), self.proj)
 
-    def attention(self, xn, causal: bool):
+    def attention(self, xn, causal: bool, s_real=None):
         """Self-attention over the LN'd input; q is pre-scaled by Hd^-0.5,
         so the core runs at sm_scale 1. One fused qkv projection: the core
-        reads k and v as strided column blocks of it."""
-        D = xn.shape[-1]
+        reads k and v as strided column blocks of it. The core is the
+        reference's for this layer (``attention_route``); ``s_real`` marks a
+        sequence padded end to end (rows >= s_real are padding)."""
+        S, D = xn.shape[1:]
         Hd = D // self.heads
         qkv = _linear(xn, self.qkv)
         q = qkv[..., :D] * float(Hd**-0.5)
-        out = AttentionCore.apply(q, qkv[..., D : 2 * D], qkv[..., 2 * D :], self.heads, causal, 1.0)
+        route = attention_route(S, self.heads, causal, s_real)
+        out = AttentionCore.apply(
+            q, qkv[..., D : 2 * D], qkv[..., 2 * D :], self.heads, causal, 1.0, route, s_real
+        )
         return _linear(out, self.o)
 
-    def forward(self, x, causal: bool):
-        x = x + self.attention(_layer_norm(x, self.ln1), causal)
+    def forward(self, x, causal: bool, s_real=None):
+        x = x + self.attention(_layer_norm(x, self.ln1), causal, s_real)
         return x + self.mlp(_layer_norm(x, self.ln2))
 
     def _qkv_rows(self, xn_q, xn):
@@ -131,11 +139,14 @@ class Block(nn.Module):
         out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.reshape(B, S, H, Hd).float())
         return _linear(out.to(dtype).reshape(B, 1, D), self.o)
 
-    def forward_cls(self, x):
+    def forward_cls(self, x, s_real=None):
         """Last block truncated to the CLS row -> [B, 1, D] (``_block_cls``):
         only x[:, 0] is read after the last layer, so its Q projection,
         attention rows 1.. and MLP rows 1.. are dead work. K/V still cover
-        every token."""
+        every token. A padded sequence is cut to its ``s_real`` rows first,
+        as ``_attention_cls`` does."""
+        if s_real is not None:
+            x = x[:, :s_real]
         xn = _layer_norm(x, self.ln1)
         q, k, v = self._qkv_rows(xn[:, :1], xn)
         c = x[:, :1] + self._pooled_attention(q, k, v)
@@ -227,6 +238,29 @@ def _encoder(x, blocks, causal: bool, remat_policy: str):
     return x
 
 
+def _vit_spad(x: torch.Tensor):
+    """(x, s_real): the pre-LN'd vision sequence zero-padded once to
+    ``ISX_VIT_SPAD`` rows and its real row count S0, or (x, None) when the
+    switch does not apply (``image_search_tpu/models/clip.py:498-516``).
+
+    It pads when the switch asks for more rows than S0, S0 is in the split
+    kernel's regime, and x is on the card (on the CPU only with
+    ``ISX_VIT_SPAD_CPU=1``); an off-regime tower ignores the switch. The
+    padded length must be (S0//128)*128 + 8, the split kernel's tail.
+    Training (remat) never pads: the caller does not ask.
+    """
+    spad = int(os.environ.get("ISX_VIT_SPAD", "0") or 0)
+    S0 = x.shape[1]
+    on_device = x.device.type == "cuda" or os.environ.get("ISX_VIT_SPAD_CPU") == "1"
+    if not (spad > S0 and on_device and split_regime(S0)):
+        return x, None
+    if spad != (S0 // 128) * 128 + 8:
+        raise ValueError(
+            f"ISX_VIT_SPAD={spad} invalid for S={S0}: need Sp == (S//128)*128 + 8 (the split kernel's tail)"
+        )
+    return F.pad(x, (0, 0, 0, spad - S0)), S0
+
+
 def encode_image(
     model: CLIP, pixels: torch.Tensor, normalize: bool = False, compute_dtype=None,
     remat: bool = False, remat_policy: str = "",
@@ -241,14 +275,15 @@ def encode_image(
     cls = v.class_embedding.to(dtype).reshape(1, 1, -1).expand(B, 1, -1)
     x = torch.cat([cls, x], dim=1) + v.position_embedding.to(dtype)
     x = _layer_norm(x, v.pre_ln)
+    x, s_real = (x, None) if remat else _vit_spad(x)
     if remat:
         pooled = _encoder(x, v.blocks, False, remat_policy)[:, 0]
     elif vc.num_layers > 1:
         for blk in v.blocks[:-1]:
-            x = blk(x, causal=False)
-        pooled = v.blocks[-1].forward_cls(x)[:, 0]
+            x = blk(x, False, s_real)
+        pooled = v.blocks[-1].forward_cls(x, s_real)[:, 0]
     else:
-        pooled = v.blocks[0](x, causal=False)[:, 0]
+        pooled = v.blocks[0](x, False, s_real)[:, 0]
     pooled = _layer_norm(pooled, v.post_ln)
     emb = _linear(pooled, v.projection)
     return l2_normalize(emb) if normalize else emb

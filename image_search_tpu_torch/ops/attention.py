@@ -1,33 +1,54 @@
-"""Multi-head attention core: kernels B1 (forward) and B5 (backward), each
-with its plain PyTorch version.
+"""Multi-head attention core: kernels B1, B1p and B6 (forward) and B5
+(backward), each with its plain PyTorch version, and the towers' choice
+between them.
 
 - ``fused_attention`` is the port of ``image_search_tpu/ops/attention.py::
-  fused_attention_grouped`` (Pallas ``_attn_kernel_grouped``), which runs
-  every attention layer of both CLIP towers except the CLS/EOS-only last one.
-  On a CUDA tensor it launches ``csrc/attention.cu``; on a CPU tensor it runs
-  :func:`attention_reference`. It follows the grouped kernel's rounding
-  points: f32 logits, f32 softmax statistics, probabilities cast to the
-  activation dtype BEFORE the PV product, f32 PV accumulation, and the 1/sum
-  factor applied to the accumulator.
+  fused_attention_grouped`` (Pallas ``_attn_kernel_grouped``), the default
+  route of every attention layer of both CLIP towers except the CLS/EOS-only
+  last one. On a CUDA tensor it launches ``csrc/attention.cu``; on a CPU
+  tensor it runs :func:`attention_reference`. It follows the grouped
+  kernel's rounding points: f32 logits, f32 softmax statistics,
+  probabilities cast to the activation dtype BEFORE the PV product, f32 PV
+  accumulation, and the 1/sum factor applied to the accumulator.
+- ``fused_attention_packed`` (B1p) is the port of ``fused_attention_packed``
+  (Pallas ``_attn_kernel``): the same function with p normalised in f32
+  before the bf16 cast (:func:`attention_packed_reference`).
+- ``fused_attention_split`` and ``fused_attention_split_padded`` (B6) are
+  the ports of the entry points of the same names (Pallas
+  ``_attn_kernel_split``): B1p's rounding over one shared max and
+  denominator, keys split at ``s_main = (S//128)*128`` into a main block and
+  a tail whose PV sums are added in f32, and keys at or past ``s_real``
+  masked (:func:`attention_split_reference`). Non-causal, S in
+  :func:`split_regime` only.
+- :func:`attention_route` picks one of those cores for a layer exactly as
+  the reference's ``models/clip.py::_attention`` does, from ``ISX_ATTN_PIPE``
+  (default 4), ``ISX_ATTN_SPLIT`` and whether the sequence is padded end to
+  end (``ISX_VIT_SPAD``, see ``models/clip.py::encode_image``).
 - ``fused_attention_bwd`` is the port of ``fused_attention_bwd`` (Pallas
   ``_attn_bwd_kernel``): dq, dk and dv from the output cotangent, with the
   probabilities recomputed in f32. On a CUDA tensor it launches
   ``csrc/attention_bwd.cu``; on a CPU tensor it runs
   :func:`attention_bwd_reference`.
-- :class:`AttentionCore` joins the two as one differentiable op, as the
-  reference's ``attention_grouped_core`` custom VJP does.
+- :class:`AttentionCore` joins a route's forward and B5 as one
+  differentiable op, as the reference's ``attention_grouped_core``,
+  ``attention_core`` and ``attention_split_core`` custom VJPs do. The padded
+  route has no VJP in the reference and raises when a gradient is needed.
 
 There is no other route: a CUDA tensor a kernel cannot take raises.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 
 from image_search_tpu_torch import _build
 
 NEG_INF = torch.finfo(torch.float32).min
 SUPPORTED_HEAD_DIMS = (64,)  # 80 (H/14) and 104 (bigG) come with the model ladder
+_TAIL = 8  # the split kernels' tail block: Sp = s_main + 8
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -54,6 +75,74 @@ def attention_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
     recip = 1.0 / p32.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhqk,bkhd->bhqd", _acc(p32.to(dtype)), _acc(v))
     return (acc * recip).to(dtype).permute(0, 2, 1, 3)
+
+
+def attention_packed_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
+    """Plain B1p over [B, S, H, Hd] -> [B, S, H, Hd]: p = exp(l - max) / sum in
+    f32, THEN rounded to q.dtype, PV accumulated in f32 (``_attn_kernel``)."""
+    dtype = q.dtype
+    p32 = torch.exp(_logits(q, k, causal, sm_scale))
+    p = (p32 / p32.sum(dim=-1, keepdim=True)).to(dtype)
+    return torch.einsum("bhqk,bkhd->bhqd", _acc(p), _acc(v)).to(dtype).permute(0, 2, 1, 3)
+
+
+def attention_split_reference(q, k, v, s_real: int, sm_scale: float = 1.0):
+    """Plain B6 over operands padded to Sp = s_main + 8 rows, [B, Sp, H, Hd]
+    -> [B, Sp, H, Hd]: every query row (pad rows too) over keys [0, s_real).
+
+    ``_attn_kernel_split``'s rounding points: main logits (keys < s_main) and
+    tail logits (keys s_main..Sp-1, those >= s_real at NEG_INF) in f32, one
+    shared max and one shared denominator, each block's p divided by it in
+    f32 and rounded to q.dtype, then main PV + tail PV added in f32. Pad keys
+    are left out of the tail's PV (the TPU kernel multiplies them by 0), so a
+    non-finite pad row cannot reach a real row.
+    """
+    Sp = q.shape[1]
+    s_main = Sp - _TAIL
+    dtype = q.dtype
+    qa = _acc(q)
+    lm = torch.einsum("bqhd,bkhd->bhqk", qa, _acc(k[:, :s_main])) * sm_scale
+    lt = torch.einsum("bqhd,bkhd->bhqk", qa, _acc(k[:, s_main:])) * sm_scale
+    lt = lt.masked_fill(torch.arange(_TAIL, device=q.device) >= s_real - s_main, NEG_INF)
+    m = torch.maximum(lm.amax(dim=-1, keepdim=True), lt.amax(dim=-1, keepdim=True))
+    pm, pt = torch.exp(lm - m), torch.exp(lt - m)
+    denom = pm.sum(dim=-1, keepdim=True) + pt.sum(dim=-1, keepdim=True)
+    pm, pt = (pm / denom).to(dtype), (pt / denom).to(dtype)
+    main = torch.einsum("bhqk,bkhd->bhqd", _acc(pm), _acc(v[:, :s_main]))
+    tail = torch.einsum("bhqk,bkhd->bhqd", _acc(pt[..., : s_real - s_main]), _acc(v[:, s_main:s_real]))
+    return (main + tail).to(dtype).permute(0, 2, 1, 3)
+
+
+def split_regime(S: int) -> bool:
+    """True when the split-key kernel applies (S in (128k, 128k + 8], a
+    non-empty aligned main block; the vision tower's 257)."""
+    s_main = (S // 128) * 128
+    return 0 < s_main < S <= s_main + _TAIL
+
+
+def attention_route(S: int, heads: int, causal: bool, s_real: int | None = None) -> str:
+    """Which core runs a layer: "padded", "split", "grouped" or "packed".
+
+    The reference's choice (``image_search_tpu/models/clip.py::_attention``),
+    read from the environment at each call: a sequence padded end to end
+    (``s_real`` set, non-causal) takes B6's padded entry; ``ISX_ATTN_SPLIT=1``
+    takes B6 for a non-causal S in :func:`split_regime`; a head group
+    ``ISX_ATTN_PIPE`` (default 4; "" and "0" turn it off) that divides the
+    head count takes B1; anything else takes B1p. The grouped kernel's bf16
+    softmax (``ISX_ATTN_BF16SM=1``) is not ported and raises.
+    """
+    pipe_group = int(os.environ.get("ISX_ATTN_PIPE", "4") or 0)
+    if s_real is not None and not causal:
+        return "padded"
+    if not causal and os.environ.get("ISX_ATTN_SPLIT") == "1" and split_regime(S):
+        return "split"
+    if pipe_group > 0 and heads % pipe_group == 0:
+        if os.environ.get("ISX_ATTN_BF16SM") == "1":
+            raise NotImplementedError(
+                "ISX_ATTN_BF16SM=1: the grouped kernel's bf16 softmax is not ported; unset it"
+            )
+        return "grouped"
+    return "packed"
 
 
 def attention_bwd_reference(q, k, v, g, heads: int, causal: bool = False, sm_scale: float = 1.0):
@@ -137,6 +226,101 @@ def fused_attention(q, k, v, heads: int, causal: bool = False, sm_scale: float =
 fused_attention.launches = 0
 
 
+def _heads(t, heads: int):
+    B, S, DH = t.shape
+    return t.reshape(B, S, heads, DH // heads)
+
+
+def _launch_normalized(q, k, v, heads: int, causal: bool, sm_scale: float, n_keys: int, s_main: int):
+    """B1p's and B6's kernel (``isx_attention_fwd_normalized``): every row of
+    q over keys [0, n_keys), PV summed over [0, s_main) and then the rest."""
+    B, S, DH = q.shape
+    _check_cuda_operands(heads, q, k, v)
+    lib = _build.lib()
+    Hd = DH // heads
+    _check_smem(q.device, lib.isx_attention_smem_bytes(n_keys, Hd), S)
+    out = torch.empty((B, S, DH), dtype=q.dtype, device=q.device)
+    rc = lib.isx_attention_fwd_normalized(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, heads, Hd, q.stride(1), k.stride(1), v.stride(1), out.stride(1),
+        n_keys, s_main, int(causal), float(sm_scale), _build.stream_handle(q.device),
+    )
+    _build.check(rc, "attention kernel launch")
+    return out
+
+
+def fused_attention_packed(q, k, v, heads: int, causal: bool = False, sm_scale: float = 1.0):
+    """B1p: attention over the packed layout [B, S, H*Hd] with p normalised
+    before the bf16 cast. Operands as for :func:`fused_attention`."""
+    B, S, DH = q.shape
+    if q.device.type == "cpu":
+        out = attention_packed_reference(_heads(q, heads), _heads(k, heads), _heads(v, heads), causal, sm_scale)
+        return out.reshape(B, S, DH)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_packed: no route for device {q.device}")
+    out = _launch_normalized(q, k, v, heads, causal, sm_scale, S, S)
+    fused_attention_packed.launches += 1
+    return out
+
+
+fused_attention_packed.launches = 0
+
+
+def fused_attention_split(q, k, v, heads: int, sm_scale: float = 1.0):
+    """B6 on unpadded operands [B, S, H*Hd], S in :func:`split_regime`
+    (non-causal) -> [B, S, H*Hd].
+
+    The reference pads q, k and v to Sp = s_main + 8 rows, runs the split
+    kernel and slices the output back to S; the plain version does the same.
+    The CUDA kernel takes the key limit and the split point as arguments, so
+    it reads the S rows in place: the pad rows would only be skipped keys
+    and discarded query rows, and no padded copies are made.
+    """
+    B, S, DH = q.shape
+    if not split_regime(S):
+        raise ValueError(
+            f"S={S} not in the split kernel's regime (need s_main < S <= s_main+{_TAIL}, "
+            f"s_main = (S//128)*128)"
+        )
+    s_main = (S // 128) * 128
+    if q.device.type == "cpu":
+        pad = lambda t: _heads(F.pad(t, (0, 0, 0, s_main + _TAIL - S)), heads)
+        out = attention_split_reference(pad(q), pad(k), pad(v), S, sm_scale)
+        return out[:, :S].reshape(B, S, DH)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_split: no route for device {q.device}")
+    out = _launch_normalized(q, k, v, heads, False, sm_scale, S, s_main)
+    fused_attention_split.launches += 1
+    return out
+
+
+fused_attention_split.launches = 0
+
+
+def fused_attention_split_padded(qp, kp, vp, heads: int, s_real: int, sm_scale: float = 1.0):
+    """B6 on operands already padded to Sp = (s_real//128)*128 + 8 rows
+    [B, Sp, H*Hd] (non-causal) -> [B, Sp, H*Hd]: keys >= s_real are masked
+    by index, whatever their rows hold; output rows >= s_real are computed
+    over the real keys and are never read by the towers."""
+    B, Sp, DH = qp.shape
+    if not (split_regime(s_real) and Sp == (s_real // 128) * 128 + _TAIL):
+        raise ValueError(
+            f"split kernel: Sp={Sp} with s_real={s_real} not in its regime "
+            f"(need Sp == (s_real//128)*128 + {_TAIL} and s_real in split_regime)"
+        )
+    if qp.device.type == "cpu":
+        out = attention_split_reference(_heads(qp, heads), _heads(kp, heads), _heads(vp, heads), s_real, sm_scale)
+        return out.reshape(B, Sp, DH)
+    if qp.device.type != "cuda":
+        raise ValueError(f"fused_attention_split_padded: no route for device {qp.device}")
+    out = _launch_normalized(qp, kp, vp, heads, False, sm_scale, s_real, Sp - _TAIL)
+    fused_attention_split_padded.launches += 1
+    return out
+
+
+fused_attention_split_padded.launches = 0
+
+
 def fused_attention_bwd(q, k, v, g, heads: int, causal: bool = False, sm_scale: float = 1.0):
     """(dq, dk, dv) of :func:`fused_attention` over the packed [B, S, H*Hd]
     layout, from the output cotangent ``g``; each a new contiguous tensor in
@@ -167,17 +351,34 @@ fused_attention_bwd.launches = 0
 
 
 class AttentionCore(torch.autograd.Function):
-    """Differentiable attention core over the packed layout: forward B1
-    (:func:`fused_attention`), backward B5 (:func:`fused_attention_bwd`).
-    Saves q, k and v for the backward, as ``_grouped_fwd`` does."""
+    """Differentiable attention core over the packed layout: the forward of
+    ``route`` (:func:`attention_route`: B1, B1p or B6), backward B5
+    (:func:`fused_attention_bwd`) for every route that has one, as the
+    reference's ``_grouped_bwd``, ``_core_bwd`` and ``_split_bwd`` all call
+    ``_backward_packed``. Saves q, k and v for the backward. The padded
+    route (``s_real`` set) has no VJP in the reference: it raises if a
+    gradient is needed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, heads: int, causal: bool, sm_scale: float):
+    def forward(ctx, q, k, v, heads: int, causal: bool, sm_scale: float, route: str = "grouped", s_real=None):
+        if route == "padded":
+            if any(ctx.needs_input_grad[:3]):
+                raise NotImplementedError(
+                    "the padded vision path (ISX_VIT_SPAD) is inference only: its split kernel has no "
+                    "gradient; unset ISX_VIT_SPAD to train"
+                )
+            return fused_attention_split_padded(q, k, v, heads, s_real, sm_scale)
         ctx.save_for_backward(q, k, v)
         ctx.args = (heads, causal, sm_scale)
-        return fused_attention(q, k, v, heads, causal, sm_scale)
+        if route == "grouped":
+            return fused_attention(q, k, v, heads, causal, sm_scale)
+        if route == "packed":
+            return fused_attention_packed(q, k, v, heads, causal, sm_scale)
+        if route == "split" and not causal:
+            return fused_attention_split(q, k, v, heads, sm_scale)
+        raise ValueError(f"attention route {route!r} (causal={causal}) does not exist")
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        return (*fused_attention_bwd(q, k, v, g.contiguous(), *ctx.args), None, None, None)
+        return (*fused_attention_bwd(q, k, v, g.contiguous(), *ctx.args), None, None, None, None, None)

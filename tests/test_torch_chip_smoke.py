@@ -51,3 +51,60 @@ def test_exits_nonzero_without_gpu(tmp_path, where):
     assert proc.returncode != 0
     assert proc.stdout == ""  # no phase ran, no result line
     assert "is_available() is False" in proc.stderr
+
+
+def _load():
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_kernels_line_lists_every_ported_kernel():
+    """The ``kernels`` line's entries (the ``entry(...)`` calls in ``main``):
+    B1, B1p, B2, B3, B4, B5 and B6, each naming a source that exists and the
+    line of the Pallas kernel body it replaces."""
+    import ast
+
+    with open(SCRIPT) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    calls = [n for n in ast.walk(main) if isinstance(n, ast.Call) and getattr(n.func, "id", None) == "entry"]
+    rows = [tuple(a.value for a in c.args[:3]) for c in calls]
+    assert [r[0] for r in rows] == [
+        "fused_attention", "fused_attention_packed", "stream_scores_int8", "blockpair_mask",
+        "blockpair_values", "fused_attention_bwd", "fused_attention_split_padded",
+    ]
+    bodies = {
+        "fused_attention": "_attn_kernel_grouped", "fused_attention_packed": "_attn_kernel",
+        "stream_scores_int8": "_kernel", "blockpair_mask": "_kernel", "blockpair_values": "_values_kernel",
+        "fused_attention_bwd": "_attn_bwd_kernel", "fused_attention_split_padded": "_attn_kernel_split",
+    }
+    for name, source, replaces in rows:
+        assert os.path.exists(os.path.join(REPO, "image_search_tpu_torch", "csrc", source)), source
+        path, line = replaces.split(":")
+        with open(os.path.join(REPO, "image_search_tpu", "ops", path)) as f:
+            text = f.read().splitlines()[int(line) - 1]
+        assert text.startswith(f"def {bodies[name]}("), (name, text)
+
+
+def test_route_switches_select_their_route_and_are_restored(monkeypatch):
+    """Each phase's switches pick the route the smoke expects, and the
+    environment is restored after the phase, set or unset before."""
+    from image_search_tpu_torch.ops import attention
+    from image_search_tpu_torch.ops.attention import attention_route, split_regime
+
+    mod = _load()
+    for name in mod.ROUTE_ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("ISX_ATTN_PIPE", "4")
+    before = dict(os.environ)
+    for route, (env, entry) in mod.ROUTE_SWITCHES.items():
+        with mod.switches(env):
+            assert all(os.environ[k] == v for k, v in env.items())
+            if route == "padded":
+                assert split_regime(257) and int(env["ISX_VIT_SPAD"]) == (257 // 128) * 128 + 8
+            else:
+                assert attention_route(257, 16, False) == route
+        assert dict(os.environ) == before
+        assert isinstance(getattr(attention, entry).launches, int)  # the wrapper the phase counts

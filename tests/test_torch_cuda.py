@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from image_search_tpu_torch.config import CLIPConfig, TextConfig, VisionConfig
+from image_search_tpu_torch.ops import attention as attn
 from image_search_tpu_torch.ops import blockmax
 from image_search_tpu_torch.ops.attention import (
     attention_bwd_reference,
@@ -64,6 +65,91 @@ def test_attention_kernel_rejects_what_it_cannot_take(dev):
     y = torch.zeros(1, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head dim"):
         fused_attention(y, y, y, 4)  # Hd = 16
+
+
+def _tower_qkv(dev, B, S, H, seed):
+    """The tower's layout: q scaled and contiguous, k and v strided column
+    blocks of one fused qkv projection."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = H * 64
+    qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).bfloat16()
+    return qkv[..., :D] * 0.125, qkv[..., D : 2 * D], qkv[..., 2 * D :]
+
+
+def _close_to_plain(got, want, want32):
+    """bf16 kernel vs bf16 plain within 2e-2, and per head vector cosine >=
+    0.9999 against the f32 plain version (chip_smoke.py's ATTN_* bounds)."""
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert F.cosine_similarity(got.float().reshape(-1, 64), want32.float().reshape(-1, 64), dim=-1).min() >= 0.9999
+
+
+@pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False)])
+def test_packed_kernel_matches_plain(dev, B, S, H, causal):
+    """B1p, the route under ISX_ATTN_PIPE=0."""
+    q, k, v = _tower_qkv(dev, B, S, H, B * S + 2)
+    n0 = attn.fused_attention_packed.launches
+    got = attn.fused_attention_packed(q, k, v, H, causal)
+    torch.cuda.synchronize()
+    assert attn.fused_attention_packed.launches == n0 + 1
+    split = lambda t: t.reshape(B, S, H, 64)
+    want = attn.attention_packed_reference(split(q), split(k), split(v), causal).reshape(B, S, H * 64)
+    want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal).reshape(B, S, H * 64)
+    _close_to_plain(got, want, want32)
+
+
+@pytest.mark.parametrize("B,S,H", [(2, 257, 16), (3, 129, 4), (1, 136, 2)])
+def test_split_kernel_matches_plain(dev, B, S, H):
+    """B6 on unpadded operands, the route under ISX_ATTN_SPLIT=1."""
+    q, k, v = _tower_qkv(dev, B, S, H, B * S + 3)
+    n0 = attn.fused_attention_split.launches
+    got = attn.fused_attention_split(q, k, v, H)
+    torch.cuda.synchronize()
+    assert attn.fused_attention_split.launches == n0 + 1
+    want = attn.fused_attention_split(q.cpu(), k.cpu(), v.cpu(), H)
+    want32 = attn.fused_attention_split(q.cpu().float(), k.cpu().float(), v.cpu().float(), H)
+    _close_to_plain(got.cpu(), want, want32)
+
+
+@pytest.mark.parametrize("B,S,H", [(2, 257, 16), (3, 129, 4), (1, 136, 2)])
+def test_split_padded_kernel_matches_plain_and_skips_pad_keys(dev, B, S, H):
+    """B6 on operands padded to Sp rows, the route under ISX_VIT_SPAD: every
+    row against the plain version, and inf/NaN in the pad rows of k and v
+    change nothing (pad keys are skipped by index)."""
+    Sp = (S // 128) * 128 + 8
+    q, k, v = _tower_qkv(dev, B, Sp, H, B * S + 4)
+    n0 = attn.fused_attention_split_padded.launches
+    got = attn.fused_attention_split_padded(q, k, v, H, S)
+    torch.cuda.synchronize()
+    assert attn.fused_attention_split_padded.launches == n0 + 1
+    split = lambda t: t.reshape(B, Sp, H, 64)
+    want = attn.attention_split_reference(split(q), split(k), split(v), S).reshape(B, Sp, H * 64)
+    want32 = attn.attention_split_reference(*(split(t).float() for t in (q, k, v)), S).reshape(B, Sp, H * 64)
+    _close_to_plain(got, want, want32)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, S:] = float("inf")
+    v2[:, S:] = float("nan")
+    assert torch.equal(attn.fused_attention_split_padded(q, k2, v2, H, S), got)
+
+
+def test_packed_and_split_kernels_reject_what_they_cannot_take(dev):
+    """Wrong dtype, an unbuilt head dim, and a sequence outside the split
+    regime all raise; nothing falls back to another route."""
+    z = lambda S, dtype=torch.bfloat16: torch.zeros(1, S, 128, device=dev, dtype=dtype)
+    calls = (
+        lambda t, h: attn.fused_attention_packed(t, t, t, h),
+        lambda t, h: attn.fused_attention_split(t, t, t, h),
+        lambda t, h: attn.fused_attention_split_padded(t, t, t, h, 257),
+    )
+    for call, S in zip(calls, (257, 257, 264)):
+        with pytest.raises(ValueError, match="bf16"):
+            call(z(S, torch.float32), 2)
+        with pytest.raises(NotImplementedError, match="head dim"):
+            call(z(S), 8)  # Hd = 16
+    with pytest.raises(ValueError, match="regime"):
+        attn.fused_attention_split(z(300), z(300), z(300), 2)
+    with pytest.raises(ValueError, match="regime"):
+        attn.fused_attention_split_padded(z(300), z(300), z(300), 2, 257)  # Sp must be 264
 
 
 @pytest.mark.parametrize(
@@ -214,8 +300,8 @@ def test_towers_launch_the_kernel_once_per_layer_but_the_last(dev):
 
     cfg = CLIPConfig(
         name="narrow-64",
-        text=TextConfig(hidden_size=128, num_layers=3, num_heads=2, vocab_size=300, context_length=20, eos_token_id=299),
-        vision=VisionConfig(hidden_size=128, num_layers=4, num_heads=2, image_size=56, patch_size=14),
+        text=TextConfig(hidden_size=256, num_layers=3, num_heads=4, vocab_size=300, context_length=20, eos_token_id=299),
+        vision=VisionConfig(hidden_size=256, num_layers=4, num_heads=4, image_size=56, patch_size=14),
         projection_dim=32,
     )
     state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
@@ -245,8 +331,8 @@ def test_train_step_launches_b5_once_per_layer_but_the_last(dev, remat):
 
     cfg = CLIPConfig(
         name="narrow-64",
-        text=TextConfig(hidden_size=128, num_layers=3, num_heads=2, vocab_size=300, context_length=20, eos_token_id=299),
-        vision=VisionConfig(hidden_size=128, num_layers=4, num_heads=2, image_size=56, patch_size=14),
+        text=TextConfig(hidden_size=256, num_layers=3, num_heads=4, vocab_size=300, context_length=20, eos_token_id=299),
+        vision=VisionConfig(hidden_size=256, num_layers=4, num_heads=4, image_size=56, patch_size=14),
         projection_dim=32,
     )
     state = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
@@ -269,3 +355,102 @@ def test_train_step_launches_b5_once_per_layer_but_the_last(dev, remat):
             assert fused_attention.launches - n_fwd == (2 * L if remat else L)
         grads[where.type] = torch.cat([p.grad.float().cpu().flatten() for p in s.model.parameters()])
     assert F.cosine_similarity(grads["cuda"], grads["cpu"], dim=0) >= 0.99
+
+
+_ROUTE_KERNELS = ("fused_attention", "fused_attention_packed", "fused_attention_split", "fused_attention_split_padded")
+_ROUTES = {  # switches -> (vision tower's entry point, text tower's)
+    "packed": ({"ISX_ATTN_PIPE": "0"}, "fused_attention_packed", "fused_attention_packed"),
+    "split": ({"ISX_ATTN_SPLIT": "1"}, "fused_attention_split", "fused_attention"),
+    "padded": ({"ISX_VIT_SPAD": "264"}, "fused_attention_split_padded", "fused_attention"),
+}
+
+
+def _narrow_257():
+    """Heads 64 wide, 4 of them (the default head group divides them: B1 is
+    the default route), and the vision tower at ViT-L/14's S = 257."""
+    return CLIPConfig(
+        name="narrow-64-s257",
+        text=TextConfig(hidden_size=256, num_layers=3, num_heads=4, vocab_size=300, context_length=20, eos_token_id=299),
+        vision=VisionConfig(hidden_size=256, num_layers=3, num_heads=4, image_size=224, patch_size=14),
+        projection_dim=32,
+    )
+
+
+def _route_counts():
+    return {name: getattr(attn, name).launches for name in _ROUTE_KERNELS}
+
+
+def _launched(before, after):
+    return {k: v - before[k] for k, v in after.items() if v != before[k]}
+
+
+@pytest.mark.parametrize("route", sorted(_ROUTES))
+def test_towers_take_each_route(dev, monkeypatch, route):
+    """Under each route's switch a forward launches its core L-1 times per
+    tower and nothing else (vision on B1p or B6, text on B1p or B1), and the
+    bf16 card output stays close to the f32 CPU forward of the same weights."""
+    from image_search_tpu_torch.models.clip import encode_image, encode_text
+    from image_search_tpu_torch.models.convert import build_model, init_params
+
+    env, vision_kernel, text_kernel = _ROUTES[route]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = _narrow_257()
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    model = build_model(cfg, state, dev, torch.bfloat16)
+    px = torch.randn(3, 224, 224, 3)
+    ids = torch.randint(0, 299, (3, 20))
+    ids[:, 9:] = 299
+    with torch.no_grad():
+        n0 = _route_counts()
+        img = encode_image(model, px.to(dev))
+        n1 = _route_counts()
+        txt = encode_text(model, ids.to(dev))
+        n2 = _route_counts()
+        torch.cuda.synchronize()
+    assert _launched(n0, n1) == {vision_kernel: 2}
+    assert _launched(n1, n2) == {text_kernel: 2}
+    cpu = build_model(cfg, {k: t.float().cpu() for k, t in state.items()}, "cpu", torch.float32)
+    with torch.no_grad():
+        assert F.cosine_similarity(img.float().cpu(), encode_image(cpu, px), dim=-1).min() >= 0.99
+        assert F.cosine_similarity(txt.float().cpu(), encode_text(cpu, ids), dim=-1).min() >= 0.99
+
+
+@pytest.mark.parametrize("route", ["packed", "split"])
+def test_train_step_takes_each_route_with_b5(dev, monkeypatch, route):
+    """A train step on the packed and split routes: the route's forward runs
+    in every layer but the last, B5 makes one launch per such layer, and the
+    gradients stay close to the f32 CPU step. The padded route has no
+    gradient and raises."""
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.train.contrastive import adamw, make_train_step
+
+    env, vision_kernel, text_kernel = _ROUTES[route]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = _narrow_257()
+    state = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    px = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    ids = torch.randint(0, 299, (4, 20), generator=torch.Generator().manual_seed(2))
+    ids[:, 9:] = 299
+    grads = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        init_fn, step_fn = make_train_step(cfg, adamw(1e-4), dtype, False, where)
+        s = init_fn(build_model(cfg, state, where, torch.float32, trainable=True))
+        n0, b0 = _route_counts(), fused_attention_bwd.launches
+        s, m = step_fn(s, ids, px)
+        assert torch.isfinite(m["loss"])
+        if where == dev:
+            torch.cuda.synchronize()
+            want = {vision_kernel: 2}
+            want[text_kernel] = want.get(text_kernel, 0) + 2
+            assert _launched(n0, _route_counts()) == want
+            assert fused_attention_bwd.launches - b0 == 4
+        grads[where.type] = torch.cat([p.grad.float().cpu().flatten() for p in s.model.parameters()])
+    assert F.cosine_similarity(grads["cuda"], grads["cpu"], dim=0) >= 0.99
+
+    monkeypatch.setenv("ISX_VIT_SPAD", "264")
+    init_fn, step_fn = make_train_step(cfg, adamw(1e-4), torch.bfloat16, False, dev)
+    s = init_fn(build_model(cfg, state, dev, torch.float32, trainable=True))
+    with pytest.raises(NotImplementedError, match="ISX_VIT_SPAD"):
+        step_fn(s, ids, px)

@@ -189,7 +189,7 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
     with open(os.path.join(REPO, "image_search_tpu_torch", "csrc", name)) as f:
         src = f.read()
     want = {
-        "attention.cu": ("_attn_kernel_grouped",), "attention_bwd.cu": ("_attn_bwd_kernel", "attention.py:122"),
+        "attention.cu": ("_attn_kernel_grouped", "_attn_kernel (", "_attn_kernel_split"), "attention_bwd.cu": ("_attn_bwd_kernel", "attention.py:122"),
         "score_stream.cu": ("_kernel_pen",), "blockmax.cu": ("_values_kernel",),
     }[name]
     assert all(w in src for w in want) and 'extern "C"' in src and "cudaGetLastError" in src
