@@ -18,14 +18,19 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    B=160 S=257 and padded at Sp=264), int8 scores at B=1, 8 and the legacy
    duplicate scan's 1024 (B2), the block-pair mask at 262,144 x 262,144
    rows, the certified route's one call, and at 16,384 x 262,144 from row
-   block 512 (B3), and values at 65,536 x 1,048,576 (B4);
+   block 512 (B3), values at 65,536 x 1,048,576 (B4); attention over one
+   packed qkv (B7, also bitwise against B1p) and the qkv projection fused
+   into attention (B8) at the B1 shapes, and the fused LayerNorm -> matmul
+   (B9) at the vision tower's 41,120 rows, ln1 -> qkv and ln2 -> fc;
 4. ViT-L/14 at full width (seeded random bf16 weights): preprocess + vision
    tower at B=160 and the text tower at B=8 through the attention kernel,
    checked against the same weights' f32 forward on the CPU, and img/s;
    then the vision tower under each other attention route
    (``ISX_ATTN_PIPE=0``: B1p, ``ISX_ATTN_SPLIT=1``: B6, ``ISX_VIT_SPAD=264``:
-   B6 on a sequence padded end to end), each held against the same f32
-   forward and timed in turns with the default route;
+   B6 on a sequence padded end to end) and under each fused-block
+   composition of ``models/block_fused.py`` (B9 + B7 + B9, B9 + B1p, B1 +
+   B9), each held against the same f32 forward, its launches counted
+   exactly, and timed in turns with the default;
 5. the HTTP server on 64 synthetic BMP photos with an int8 index: /scan,
    /search with and without Rocchio feedback (checked against the plain
    scoring of the same index), /health; again on fresh servers under
@@ -75,6 +80,8 @@ ATTN_MAX_ABS = 2e-2  # bf16 kernel vs bf16 plain version (output values are O(1)
 ATTN_MIN_COS = 0.9999  # per head vector, bf16 kernel vs f32 plain version
 BWD_MAX_REL = 2e-2  # B5 vs its bf16 plain version, as a share of max|plain|
 BWD_MIN_COS = 0.999  # B5 per (batch, head) vs its f32 plain version
+LN_MM_MAX_REL = 2e-2  # B9 vs its bf16 plain version, as a share of max|plain|
+LN_MM_MIN_COS = 0.9999  # B9 per output row vs its f32 plain version
 GRAD_MIN_COS = 0.99  # global gradient cosine, bf16 train step on the card vs f32 on the CPU
 TRAIN_BATCH, TRAIN_STEPS = 64, 6  # the fine-tune CLI runs (at the CLI's default lr, 1e-5)
 TOWER_MIN_COS = 0.99  # bf16 on the card vs f32 on the CPU over 24 layers
@@ -150,6 +157,13 @@ ROUTE_SWITCHES = {
     "padded": ({"ISX_VIT_SPAD": "264"}, "fused_attention_split_padded"),
 }
 ROUTE_ENV = ("ISX_ATTN_PIPE", "ISX_ATTN_SPLIT", "ISX_VIT_SPAD", "ISX_VIT_SPAD_CPU", "ISX_ATTN_BF16SM")
+# the fused-block compositions (models/block_fused.py): the kernels each runs
+# per swapped block (every vision layer but the CLS-only last one)
+FUSED_LAUNCHES = {
+    "fully fused": {"ln_matmul": 2, "fused_attention_qkv_packed": 1},
+    "ln1->qkv only": {"ln_matmul": 1, "fused_attention_packed": 1},
+    "ln2->fc only": {"ln_matmul": 1, "fused_attention": 1},
+}
 
 
 @contextlib.contextmanager
@@ -290,7 +304,124 @@ def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_rea
     )
 
 
+def _attn_bound(B, S, H, causal, extra_ops=0.0, extra_bytes=0.0):
+    """Bound of attention over [B, S, H*64] q, k and v read once and the
+    output written once, plus extra operations and bytes."""
+    D = H * 64
+    pairs = S * (S + 1) // 2 if causal else S * S  # the (query, key) pairs the data needs
+    return bound(4 * B * S * D * 2 + extra_bytes, 4 * B * H * pairs * 64 + extra_ops, BF16_FLOP_PER_S)
+
+
+def check_qkv_packed(torch, gen, dev, B, S, H, causal):
+    """B7 against its plain version on one packed qkv at sm_scale 0.125 (Hd =
+    64), and bitwise against B1p on (q * 0.125, k, v): a power of two scales
+    q exactly in bf16. Timed beside SDPA on the three views."""
+    from image_search_tpu_torch.ops import attention as A
+
+    F = torch.nn.functional
+    D, Hd, scale = H * 64, 64, 0.125
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[..., :D], qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    kernel = lambda: A.fused_attention_qkv_packed(qkv, H, causal, scale)
+    plain = lambda t: A.attention_qkv_packed_reference(t, H, causal, scale)
+    got = kernel()
+    torch.cuda.synchronize()
+    shape = f"B={B} S={S} H={H} Hd=64 causal={causal} sm_scale={scale}"
+    check(torch.equal(got, A.fused_attention_packed(q * scale, k, v, H, causal)),
+          f"B7 {shape}: not bitwise equal to B1p on (q * {scale}, k, v)")
+    want, want32 = plain(qkv), plain(qkv.float())
+    err = (got.float() - want.float()).abs().max().item()
+    cos = F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min().item()
+    check(err <= ATTN_MAX_ABS, f"B7 {shape}: max abs err {err} > {ATTN_MAX_ABS}")
+    check(cos >= ATTN_MIN_COS, f"B7 {shape}: min cosine {cos} < {ATTN_MIN_COS}")
+    k_ms, p_ms = ab_ms(torch, lambda: plain(qkv), kernel, iters=10)
+    heads = lambda t: t.reshape(B, S, H, Hd).transpose(1, 2)
+    lib_ms = statistics.median(cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal, scale=scale),
+        iters=10,
+    ))
+    b_ms, b_by = _attn_bound(B, S, H, causal)
+    print(f"B7 attention qkv-packed {shape}: bitwise_equal_B1p=True max_abs_err={err} min_cos_vs_f32={cos} "
+          f"kernel_ms={k_ms} plain_ms={p_ms} sdpa_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+          + ("  (kernel SLOWER than plain)" if k_ms > p_ms else ""))
+    return dict(max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, shape=shape)
+
+
+def check_qkv_attention(torch, gen, dev, B, S, H, causal):
+    """B8 against its plain version (the projection accumulated in f32, then
+    B7's plain attention), timed beside F.linear + SDPA on the same inputs."""
+    from image_search_tpu_torch.ops import attention as A
+
+    F = torch.nn.functional
+    D, Hd, scale = H * 64, 64, 0.125
+    x = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(3 * D, D, generator=gen, device=dev) * D**-0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(3 * D, generator=gen, device=dev)).to(torch.bfloat16)
+    kernel = lambda: A.fused_qkv_attention(x, w, b, H, causal, scale)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = A.qkv_attention_reference(x, w, b, H, causal, scale)
+    want32 = A.qkv_attention_reference(x.float(), w.float(), b.float(), H, causal, scale)
+    shape = f"B={B} S={S} D={D} H={H} Hd=64 causal={causal} sm_scale={scale}"
+    err = (got.float() - want.float()).abs().max().item()
+    cos = F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min().item()
+    check(err <= ATTN_MAX_ABS, f"B8 {shape}: max abs err {err} > {ATTN_MAX_ABS}")
+    check(cos >= ATTN_MIN_COS, f"B8 {shape}: min cosine {cos} < {ATTN_MIN_COS}")
+    k_ms, p_ms = ab_ms(torch, lambda: A.qkv_attention_reference(x, w, b, H, causal, scale), kernel, iters=10)
+
+    def library():
+        qkv = F.linear(x, w, b).reshape(B, S, 3, H, Hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, Hd] views
+        return F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], is_causal=causal, scale=scale)
+
+    lib_ms = statistics.median(cuda_ms(torch, library, iters=10))
+    b_ms, b_by = _attn_bound(B, S, H, causal, extra_ops=2 * B * S * D * 3 * D,
+                             extra_bytes=(3 * D * D + 3 * D) * 2 - 2 * B * S * D * 2)
+    print(f"B8 qkv-projection attention {shape}: max_abs_err={err} min_cos_vs_f32={cos} kernel_ms={k_ms} "
+          f"plain_ms={p_ms} linear+sdpa_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+          + ("  (kernel SLOWER than plain)" if k_ms > p_ms else ""))
+    return dict(max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, shape=shape)
+
+
+def check_ln_matmul(torch, gen, dev, M, K, N):
+    """B9 against its plain version at the vision tower's rows (B=160 x 257),
+    timed beside F.layer_norm + F.linear on the same inputs."""
+    from image_search_tpu_torch.ops.ln_matmul import ln_matmul, ln_matmul_reference
+
+    F = torch.nn.functional
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    ls = 1 + 0.1 * torch.randn(K, generator=gen, device=dev)
+    lb = 0.1 * torch.randn(K, generator=gen, device=dev)
+    w = (torch.randn(N, K, generator=gen, device=dev) * K**-0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(N, generator=gen, device=dev)).to(torch.bfloat16)
+    kernel = lambda: ln_matmul(x, ls, lb, w, b)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = ln_matmul_reference(x, ls, lb, w, b)
+    want32 = ln_matmul_reference(x.float(), ls, lb, w.float(), b.float())
+    shape = f"M={M} K={K} N={N}"
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    cos = F.cosine_similarity(got.float(), want32, dim=-1).min().item()
+    del want32
+    check(rel <= LN_MM_MAX_REL, f"B9 {shape}: max abs err {err} = {rel} x max|plain| > {LN_MM_MAX_REL}")
+    check(cos >= LN_MM_MIN_COS, f"B9 {shape}: min row cosine {cos} < {LN_MM_MIN_COS}")
+    k_ms, p_ms = ab_ms(torch, lambda: ln_matmul_reference(x, ls, lb, w, b), kernel, iters=10)
+    ls16, lb16 = ls.to(torch.bfloat16), lb.to(torch.bfloat16)
+    lib_ms = statistics.median(cuda_ms(torch, lambda: F.linear(F.layer_norm(x, (K,), ls16, lb16, 1e-5), w, b),
+                                       iters=10))
+    b_ms, b_by = bound((M * K + N * K + M * N + N) * 2 + 8 * K, 2 * M * K * N, BF16_FLOP_PER_S)
+    print(f"B9 ln_matmul {shape}: max_abs_err={err} (x max|plain|: {rel}) min_row_cos_vs_f32={cos} "
+          f"kernel_ms={k_ms} ({2 * M * K * N / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s) plain_ms={p_ms} "
+          f"layer_norm+linear_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+          + ("  (kernel SLOWER than plain)" if k_ms > p_ms else ""))
+    return dict(max_abs_err=err, max_rel_err=rel, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, shape=shape)
+
+
 def phase_kernels(torch, gen, dev):
+    from image_search_tpu_torch.ops.attention import fused_qkv_attention
     from image_search_tpu_torch.ops.blockmax import (
         blockpair_mask, blockpair_mask_reference, blockpair_values, blockpair_values_reference,
     )
@@ -309,6 +440,16 @@ def phase_kernels(torch, gen, dev):
 
     for B, S, H, causal in ((TRAIN_BATCH, 257, 16, False), (TRAIN_BATCH, 77, 12, True)):
         res[("attention_bwd", S)] = check_attention_bwd(torch, gen, dev, B, S, H, causal)
+
+    n0 = fused_qkv_attention.launches
+    for B, S, H, causal in ((160, 257, 16, False), (32, 77, 12, True)):
+        res[("qkv_packed", S)] = check_qkv_packed(torch, gen, dev, B, S, H, causal)
+        res[("qkv_attention", S)] = check_qkv_attention(torch, gen, dev, B, S, H, causal)
+    res["qkv_attention_launches"] = fused_qkv_attention.launches - n0  # no path runs B8: its checks' launches
+    torch.cuda.empty_cache()
+    for N in (3072, 4096):  # ln1 -> qkv and ln2 -> fc
+        res[("ln_matmul", N)] = check_ln_matmul(torch, gen, dev, 160 * 257, 1024, N)
+        torch.cuda.empty_cache()
 
     D = DIM
     for N, batches in ((1_000_000, (1, 8)), (65_536, (1024,))):
@@ -414,6 +555,7 @@ def phase_towers(torch, gen, dev, smi):
     import numpy as np
 
     from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.block_fused import COMPOSITIONS, blocks_as
     from image_search_tpu_torch.models.clip import encode_image, encode_text
     from image_search_tpu_torch.models.convert import build_model, init_params
     from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
@@ -493,10 +635,36 @@ def phase_towers(torch, gen, dev, smi):
                 f"B=160 {r_ms} ms = {160 / (r_ms * 1e-3)} img/s vs default route {base} ms = "
                 f"{160 / (base * 1e-3)} img/s ({(base / r_ms - 1) * 100:+.2f}% img/s)  [{smi}]"
             )
+
+        # the vision tower under each fused-block composition (blocks 0..L-2
+        # swapped, Block.forward restored on exit even when a check fails):
+        # exact launches, cosine against the same f32 CPU tower, and img/s
+        # against the default block, timed in turns (default, composition,
+        # composition, default)
+        fused = {}
+        for name, fn in COMPOSITIONS.items():
+            want = {k: v * L_v for k, v in FUSED_LAUNCHES[name].items()}
+            with blocks_as(fn):
+                got, n = launched(vision)
+                check(n == want, f"vision under the {name} blocks launched {n}, want {want}")
+                cos = F.cosine_similarity(got[:4].float().cpu(), img32, dim=-1).min().item()
+                check(cos >= TOWER_MIN_COS, f"image embeddings, {name} blocks: cosine {cos} < {TOWER_MIN_COS}")
+            base = cuda_ms(torch, vision, iters=5)
+            with blocks_as(fn):
+                c_ms = cuda_ms(torch, vision, iters=5) + cuda_ms(torch, vision, iters=5)
+            base += cuda_ms(torch, vision, iters=5)
+            c_ms, base = statistics.median(c_ms), statistics.median(base)
+            fused[name] = {"img_per_s": 160 / (c_ms * 1e-3), "default_img_per_s": 160 / (base * 1e-3),
+                           "ms": c_ms, "default_ms": base, "cos_image": cos, "launches": n}
+            print(
+                f"towers: {name} blocks: vision launches {n}, cosine vs f32 CPU {cos}; B=160 {c_ms} ms = "
+                f"{160 / (c_ms * 1e-3)} img/s vs default blocks {base} ms = {160 / (base * 1e-3)} img/s "
+                f"({(base / c_ms - 1) * 100:+.2f}% img/s)  [{smi}]"
+            )
     del model, state
     torch.cuda.empty_cache()
     return {"img_per_s": ips, "vision_ms": ms, "text_ms": txt_ms, "cos_image": cos_i, "cos_text": cos_t,
-            "routes": routes}
+            "routes": routes, "fused": fused}
 
 
 def _http(method: str, url: str, body=None):
@@ -654,10 +822,12 @@ def phase_server_routes(torch, dev, model: str = "clip-vit-large-patch14"):
 def _kernel_counts():
     from image_search_tpu_torch.ops import attention as A
     from image_search_tpu_torch.ops.blockmax import blockpair_mask, blockpair_values
+    from image_search_tpu_torch.ops.ln_matmul import ln_matmul
     from image_search_tpu_torch.ops.score_stream import stream_scores_int8
 
     return (A.fused_attention, A.fused_attention_packed, A.fused_attention_split, A.fused_attention_split_padded,
-            A.fused_attention_bwd, stream_scores_int8, blockpair_mask, blockpair_values)
+            A.fused_attention_bwd, stream_scores_int8, blockpair_mask, blockpair_values,
+            A.fused_attention_qkv_packed, A.fused_qkv_attention, ln_matmul)
 
 
 def _reset_counts():
@@ -1228,8 +1398,18 @@ def main() -> int:
         entry("fused_attention_split_padded", "attention.cu", "attention.py:492",
               served["padded"]["launches"]["fused_attention_split_padded"], kern[("padded", 264)],
               max(kern[("padded", 264)]["max_abs_err"], kern[("split", 257)]["max_abs_err"])),
+        entry("fused_attention_qkv_packed", "attention.cu", "attention.py:276",
+              towers["fused"]["fully fused"]["launches"]["fused_attention_qkv_packed"], kern[("qkv_packed", 257)],
+              max(kern[("qkv_packed", 257)]["max_abs_err"], kern[("qkv_packed", 77)]["max_abs_err"])),
+        entry("fused_qkv_attention", "qkv_attention.cu", "attention.py:374", kern["qkv_attention_launches"],
+              kern[("qkv_attention", 257)],
+              max(kern[("qkv_attention", 257)]["max_abs_err"], kern[("qkv_attention", 77)]["max_abs_err"])),
+        entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:42",
+              towers["fused"]["fully fused"]["launches"]["ln_matmul"], kern[("ln_matmul", 3072)],
+              max(kern[("ln_matmul", 3072)]["max_abs_err"], kern[("ln_matmul", 4096)]["max_abs_err"])),
     ], "img_per_s": towers["img_per_s"],
         "route_img_per_s": {r: v["img_per_s"] for r, v in towers["routes"].items()},
+        "fused_block_img_per_s": {r: v["img_per_s"] for r, v in towers["fused"].items()},
         "train_ms_per_step": ft["plain"]["ms_per_step"], "train_pairs_per_s": ft["plain"]["pairs_per_s"],
         "train_remat_ms_per_step": ft["remat"]["ms_per_step"],
         "train_grad_cos": grad["cos_global"],

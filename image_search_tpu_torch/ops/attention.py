@@ -33,6 +33,17 @@ between them.
   differentiable op, as the reference's ``attention_grouped_core``,
   ``attention_core`` and ``attention_split_core`` custom VJPs do. The padded
   route has no VJP in the reference and raises when a gradient is needed.
+- ``fused_attention_qkv_packed`` (B7) is the port of the entry point of the
+  same name (Pallas ``_attn_kernel_packed``): B1p's function over the three
+  column blocks of one ``[B, S, 3D]`` qkv, q unscaled and ``sm_scale``
+  applied to the f32 logits. It launches B1p's kernel on the three views.
+  :class:`AttentionQkvPackedCore` is its VJP (``attention_qkv_packed_core``):
+  B5 on the views, concatenated.
+- ``fused_qkv_attention`` (B8) is the port of the entry point of the same
+  name (Pallas ``_qkv_attn_kernel``): the qkv projection of the LN'd x and
+  B7's attention in one kernel (``csrc/qkv_attention.cu``), so qkv never
+  reaches device memory (:func:`qkv_attention_reference`). No tower calls
+  it, as in the reference.
 
 There is no other route: a CUDA tensor a kernel cannot take raises.
 """
@@ -382,3 +393,101 @@ class AttentionCore(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         return (*fused_attention_bwd(q, k, v, g.contiguous(), *ctx.args), None, None, None, None, None)
+
+
+def _qkv_views(qkv):
+    D = qkv.shape[-1] // 3
+    return qkv[..., :D], qkv[..., D : 2 * D], qkv[..., 2 * D :]
+
+
+def attention_qkv_packed_reference(qkv, heads: int, causal: bool = False, sm_scale: float = 1.0):
+    """Plain B7: :func:`attention_packed_reference` on the three column views
+    of qkv [B, S, 3*H*Hd] -> [B, S, H*Hd]."""
+    B, S, D3 = qkv.shape
+    q, k, v = (_heads(t, heads) for t in _qkv_views(qkv))
+    return attention_packed_reference(q, k, v, causal, sm_scale).reshape(B, S, D3 // 3)
+
+
+def fused_attention_qkv_packed(qkv, heads: int, causal: bool = False, sm_scale: float = 1.0):
+    """B7: attention over the three column blocks [q | k | v] of one packed
+    qkv [B, S, 3*H*Hd] -> [B, S, H*Hd], q unscaled: the f32 logits are
+    multiplied by ``sm_scale``, p normalised in f32 before the cast (B1p's
+    rounding). On the card, B1p's kernel on the three views (no copies)."""
+    B, S, D3 = qkv.shape
+    if D3 % 3:
+        raise ValueError(f"fused_attention_qkv_packed: last dim {D3} is not 3 * D")
+    if qkv.device.type == "cpu":
+        return attention_qkv_packed_reference(qkv, heads, causal, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_attention_qkv_packed: no route for device {qkv.device}")
+    out = _launch_normalized(*_qkv_views(qkv), heads, causal, sm_scale, S, S)
+    fused_attention_qkv_packed.launches += 1
+    return out
+
+
+fused_attention_qkv_packed.launches = 0
+
+
+class AttentionQkvPackedCore(torch.autograd.Function):
+    """Differentiable B7 (the reference's ``attention_qkv_packed_core``):
+    the forward of :func:`fused_attention_qkv_packed`, the backward B5
+    (:func:`fused_attention_bwd`) on the three column views at the same
+    ``sm_scale``, concatenated on the last axis (``_packed_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads: int, causal: bool = False, sm_scale: float = 1.0):
+        ctx.save_for_backward(qkv)
+        ctx.args = (heads, causal, sm_scale)
+        return fused_attention_qkv_packed(qkv, heads, causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        grads = fused_attention_bwd(*_qkv_views(qkv), g.contiguous(), *ctx.args)
+        return torch.cat(grads, dim=-1), None, None, None
+
+
+def qkv_attention_reference(x, qkv_w, qkv_b, heads: int, causal: bool = False, sm_scale: float = 1.0):
+    """Plain B8: x [B, S, D] (LN'd), qkv_w [3D, D] (``nn.Linear``'s layout),
+    qkv_b [3D] -> [B, S, D]. qkv = (x @ qkv_w^T accumulated in f32) cast to
+    x.dtype, then ``+ qkv_b`` in x.dtype; then B7's plain version."""
+    qkv = torch.matmul(_acc(x), _acc(qkv_w).t()).to(x.dtype) + qkv_b.to(x.dtype)
+    return attention_qkv_packed_reference(qkv, heads, causal, sm_scale)
+
+
+def fused_qkv_attention(x, qkv_w, qkv_b, heads: int, causal: bool = False, sm_scale: float = 1.0):
+    """B8: the qkv projection and attention in one kernel, x [B, S, D] (LN'd),
+    qkv_w [3D, D] (``nn.Linear``'s layout, the reference's ``[D, 3D]``
+    transposed), qkv_b [3D] -> [B, S, D]; q unscaled, ``sm_scale`` on the
+    f32 logits. On the card: bf16, head dim in ``SUPPORTED_HEAD_DIMS``,
+    contiguous operands; anything else raises."""
+    B, S, D = x.shape
+    if x.device.type == "cpu":
+        return qkv_attention_reference(x, qkv_w, qkv_b, heads, causal, sm_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_qkv_attention: no route for device {x.device}")
+    for name, t, shape in (("x", x, (B, S, D)), ("qkv_w", qkv_w, (3 * D, D)), ("qkv_b", qkv_b, (3 * D,))):
+        if t.device != x.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"qkv attention kernel: {name} must be bf16 on {x.device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"qkv attention kernel: {name} shape {tuple(t.shape)} != {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"qkv attention kernel: {name} must be contiguous and 16-byte aligned")
+    if D % heads or D // heads not in SUPPORTED_HEAD_DIMS:
+        raise NotImplementedError(
+            f"qkv attention kernel: head dim {D // heads if heads else '?'} not built "
+            f"(built: {SUPPORTED_HEAD_DIMS})"
+        )
+    lib = _build.lib()
+    _check_smem(x.device, lib.isx_qkv_attention_smem_bytes(S), S)
+    out = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
+    rc = lib.isx_qkv_attention(
+        x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), out.data_ptr(),
+        B, S, heads, D // heads, int(causal), float(sm_scale), _build.stream_handle(x.device),
+    )
+    _build.check(rc, "qkv attention kernel launch")
+    fused_qkv_attention.launches += 1
+    return out
+
+
+fused_qkv_attention.launches = 0

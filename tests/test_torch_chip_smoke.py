@@ -62,8 +62,8 @@ def _load():
 
 def test_kernels_line_lists_every_ported_kernel():
     """The ``kernels`` line's entries (the ``entry(...)`` calls in ``main``):
-    B1, B1p, B2, B3, B4, B5 and B6, each naming a source that exists and the
-    line of the Pallas kernel body it replaces."""
+    B1, B1p, B2, B3, B4, B5, B6, B7, B8 and B9, each naming a source that
+    exists and the line of the Pallas kernel body it replaces."""
     import ast
 
     with open(SCRIPT) as f:
@@ -74,11 +74,14 @@ def test_kernels_line_lists_every_ported_kernel():
     assert [r[0] for r in rows] == [
         "fused_attention", "fused_attention_packed", "stream_scores_int8", "blockpair_mask",
         "blockpair_values", "fused_attention_bwd", "fused_attention_split_padded",
+        "fused_attention_qkv_packed", "fused_qkv_attention", "ln_matmul",
     ]
     bodies = {
         "fused_attention": "_attn_kernel_grouped", "fused_attention_packed": "_attn_kernel",
         "stream_scores_int8": "_kernel", "blockpair_mask": "_kernel", "blockpair_values": "_values_kernel",
         "fused_attention_bwd": "_attn_bwd_kernel", "fused_attention_split_padded": "_attn_kernel_split",
+        "fused_attention_qkv_packed": "_attn_kernel_packed", "fused_qkv_attention": "_qkv_attn_kernel",
+        "ln_matmul": "_ln_mm_kernel",
     }
     for name, source, replaces in rows:
         assert os.path.exists(os.path.join(REPO, "image_search_tpu_torch", "csrc", source)), source

@@ -454,3 +454,155 @@ def test_train_step_takes_each_route_with_b5(dev, monkeypatch, route):
     s = init_fn(build_model(cfg, state, dev, torch.float32, trainable=True))
     with pytest.raises(NotImplementedError, match="ISX_VIT_SPAD"):
         step_fn(s, ids, px)
+
+
+# --- B7, B8 and B9 and the fused-block compositions ---------------------------------
+
+
+def _packed_qkv(dev, B, S, H, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(B, S, 3 * H * 64, generator=g, device=dev).bfloat16()
+
+
+def _views(qkv, H):
+    D = H * 64
+    return qkv[..., :D], qkv[..., D : 2 * D], qkv[..., 2 * D :]
+
+
+@pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False)])
+def test_qkv_packed_kernel_matches_plain_and_b1p_bitwise(dev, B, S, H, causal):
+    """B7 on the three column views with sm_scale 0.125 in the f32 logits:
+    close to its plain version, and bitwise equal to B1p on (q * 0.125, k,
+    v) at sm_scale 1 (a power of two scales q exactly in bf16)."""
+    qkv = _packed_qkv(dev, B, S, H, B * S + 5)
+    n0 = attn.fused_attention_qkv_packed.launches
+    got = attn.fused_attention_qkv_packed(qkv, H, causal, 0.125)
+    torch.cuda.synchronize()
+    assert attn.fused_attention_qkv_packed.launches == n0 + 1
+    split = lambda t: t.reshape(B, S, H, 64)
+    q, k, v = _views(qkv, H)
+    want = attn.attention_packed_reference(split(q), split(k), split(v), causal, 0.125).reshape(B, S, H * 64)
+    want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal, 0.125).reshape(B, S, H * 64)
+    _close_to_plain(got, want, want32)
+    assert torch.equal(got, attn.fused_attention_packed(q * 0.125, k, v, H, causal))
+
+
+@pytest.mark.parametrize("B,S,H,causal", [(4, 257, 16, False), (4, 77, 12, True)])
+def test_qkv_packed_core_backward_is_b5_on_the_views(dev, B, S, H, causal):
+    qkv = _packed_qkv(dev, B, S, H, B * S + 6).requires_grad_()
+    go = torch.randn(B, S, H * 64, device=dev).bfloat16()
+    n0 = fused_attention_bwd.launches
+    (dqkv,) = torch.autograd.grad(attn.AttentionQkvPackedCore.apply(qkv, H, causal, 0.125), qkv, go)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == n0 + 1
+    want = torch.cat(attention_bwd_reference(*_views(qkv.detach(), H), go, H, causal, 0.125), dim=-1)
+    assert dqkv.shape == qkv.shape and dqkv.dtype == torch.bfloat16
+    assert (dqkv.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 130, 4, False)])
+def test_qkv_attention_kernel_matches_plain(dev, B, S, H, causal):
+    """B8: the projection in the kernel's own mma tiles, then B7's attention."""
+    g = torch.Generator(device=dev).manual_seed(B * S + 7)
+    D = H * 64
+    x = torch.randn(B, S, D, generator=g, device=dev).bfloat16()
+    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).bfloat16()
+    b = (torch.randn(3 * D, generator=g, device=dev) * 0.1).bfloat16()
+    n0 = attn.fused_qkv_attention.launches
+    got = attn.fused_qkv_attention(x, w, b, H, causal, 0.125)
+    torch.cuda.synchronize()
+    assert attn.fused_qkv_attention.launches == n0 + 1
+    want = attn.qkv_attention_reference(x, w, b, H, causal, 0.125)
+    want32 = attn.qkv_attention_reference(x.float(), w.float(), b.float(), H, causal, 0.125)
+    _close_to_plain(got, want, want32)
+
+
+def test_qkv_kernels_reject_what_they_cannot_take(dev):
+    x = torch.zeros(2, 8, 128, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(384, 128, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(384, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        attn.fused_qkv_attention(x.float(), w, b, 2)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        attn.fused_qkv_attention(x, w, b, 8)  # Hd = 16
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.fused_qkv_attention(x.transpose(0, 1).contiguous().transpose(0, 1), w, b, 2)
+    with pytest.raises(ValueError, match="shape"):
+        attn.fused_qkv_attention(x, w[:256], b, 2)
+    with pytest.raises(ValueError, match="bf16"):
+        attn.fused_attention_qkv_packed(torch.zeros(1, 8, 384, device=dev), 2)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        attn.fused_attention_qkv_packed(torch.zeros(1, 8, 384, device=dev, dtype=torch.bfloat16), 8)
+
+
+@pytest.mark.parametrize("M,K,N", [(41_120, 1024, 3072), (1000, 1024, 4096), (33, 32, 48), (130, 40, 200), (1, 8, 8)])
+def test_ln_matmul_kernel_matches_plain(dev, M, K, N):
+    """B9 against its bf16 plain version within 2e-2 x max|plain| and per
+    row cosine >= 0.9999 against the f32 plain version, at the vision
+    tower's ln1 -> qkv shape and at edges: an M that is not a tile multiple,
+    a K that is not a multiple of the 32-deep tile, N below one tile."""
+    from image_search_tpu_torch.ops.ln_matmul import ln_matmul, ln_matmul_reference
+
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = (torch.randn(M, K, generator=g, device=dev) * 2 + 0.5).bfloat16()
+    ls = 1 + 0.1 * torch.randn(K, generator=g, device=dev)
+    lb = 0.1 * torch.randn(K, generator=g, device=dev)
+    w = (torch.randn(N, K, generator=g, device=dev) * K**-0.5).bfloat16()
+    b = (0.1 * torch.randn(N, generator=g, device=dev)).bfloat16()
+    n0 = ln_matmul.launches
+    got = ln_matmul(x, ls, lb, w, b)
+    torch.cuda.synchronize()
+    assert ln_matmul.launches == n0 + 1
+    want = ln_matmul_reference(x, ls, lb, w, b)
+    want32 = ln_matmul_reference(x.float(), ls, lb, w.float(), b.float())
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+    assert F.cosine_similarity(got.float(), want32, dim=-1).min() >= 0.9999
+
+
+def test_ln_matmul_kernel_rejects_what_it_cannot_take(dev):
+    from image_search_tpu_torch.ops.ln_matmul import ln_matmul
+
+    x = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(32, 64, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(32, device=dev, dtype=torch.bfloat16)
+    ls, lb = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        ln_matmul(x.float(), ls, lb, w, b)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_matmul(x[:, :36].contiguous(), ls[:36], lb[:36], w[:, :36].contiguous(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln_matmul(x, ls, lb, torch.zeros(64, 32, device=dev, dtype=torch.bfloat16).t(), b)
+    with pytest.raises(ValueError, match=r"\[N"):
+        ln_matmul(x, ls, lb, w, b[:16])
+
+
+@pytest.mark.parametrize("name", ["fully fused", "ln1->qkv only", "ln2->fc only"])
+def test_fused_blocks_run_their_kernels_once_per_layer_but_the_last(dev, name):
+    """A narrow CLIP whose heads are 64 wide, under each composition: the
+    kernels of the composition on every vision layer but the CLS-only one,
+    and the bf16 card output close to the f32 CPU forward."""
+    from image_search_tpu_torch.models import block_fused
+    from image_search_tpu_torch.models.clip import encode_image
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.ops.ln_matmul import ln_matmul
+
+    cfg = CLIPConfig(
+        name="narrow-64",
+        text=TextConfig(hidden_size=256, num_layers=2, num_heads=4, vocab_size=300, context_length=20, eos_token_id=299),
+        vision=VisionConfig(hidden_size=256, num_layers=4, num_heads=4, image_size=56, patch_size=14),
+        projection_dim=32,
+    )
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev, torch.bfloat16)
+    model = build_model(cfg, state, dev, torch.bfloat16)
+    cpu = build_model(cfg, {k: t.float().cpu() for k, t in state.items()}, "cpu", torch.float32)
+    px = torch.randn(3, 56, 56, 3)
+    fns = (ln_matmul, attn.fused_attention_qkv_packed, attn.fused_attention_packed, fused_attention)
+    n0 = [f.launches for f in fns]
+    with torch.no_grad(), block_fused.blocks_as(block_fused.COMPOSITIONS[name]):
+        img = encode_image(model, px.to(dev))
+    torch.cuda.synchronize()
+    n = tuple(f.launches - a for f, a in zip(fns, n0))
+    want = {"fully fused": (6, 3, 0, 0), "ln1->qkv only": (3, 0, 3, 0), "ln2->fc only": (3, 0, 0, 3)}[name]
+    assert n == want
+    assert F.cosine_similarity(img.float().cpu(), encode_image(cpu, px), dim=-1).min() >= 0.99

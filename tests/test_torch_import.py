@@ -29,9 +29,11 @@ PORT_MODULES = [
     "image_search_tpu_torch.ops.score_stream",
     "image_search_tpu_torch.ops.preprocess",
     "image_search_tpu_torch.ops.topk",
+    "image_search_tpu_torch.ops.ln_matmul",
     "image_search_tpu_torch.models.clip",
     "image_search_tpu_torch.models.convert",
     "image_search_tpu_torch.models.embedder",
+    "image_search_tpu_torch.models.block_fused",
     "image_search_tpu_torch.index.store",
     "image_search_tpu_torch.index.twostage",
     "image_search_tpu_torch.index.dupscan",
