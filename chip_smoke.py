@@ -21,7 +21,11 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    block 512 (B3), values at 65,536 x 1,048,576 (B4); attention over one
    packed qkv (B7, also bitwise against B1p) and the qkv projection fused
    into attention (B8) at the B1 shapes, and the fused LayerNorm -> matmul
-   (B9) at the vision tower's 41,120 rows, ln1 -> qkv and ln2 -> fc;
+   (B9) at the vision tower's 41,120 rows, ln1 -> qkv and ln2 -> fc. The
+   attention kernels (B1, B1p, B5, B6, B7), their plain versions and SDPA
+   are timed by replaying a CUDA graph of 10 calls (device time: a text-size
+   kernel is shorter than one launch from Python) and print their TFLOP/s
+   and share of the bound; the others by CUDA events around each call;
 4. ViT-L/14 at full width (seeded random bf16 weights): preprocess + vision
    tower at B=160 and the text tower at B=8 through the attention kernel,
    checked against the same weights' f32 forward on the CPU, and img/s;
@@ -132,12 +136,45 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2):
     return out
 
 
-def ab_ms(torch, plain, kernel, iters: int):
+def graph_ms(torch, fn, iters: int, reps: int = 10):
+    """Per-call device times (ms) of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed ``iters`` times between CUDA events. A kernel of tens
+    of microseconds is shorter than the host's cost of one launch from
+    Python, which per-call events (cuda_ms) would measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as CUDA graphs ask
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    out = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def ab_ms(torch, plain, kernel, iters: int, timer=cuda_ms):
     """Median ms of both versions, timed in turns: plain, kernel, kernel, plain."""
-    p = cuda_ms(torch, plain, iters)
-    k = cuda_ms(torch, kernel, iters) + cuda_ms(torch, kernel, iters)
-    p += cuda_ms(torch, plain, iters)
+    p = timer(torch, plain, iters)
+    k = timer(torch, kernel, iters) + timer(torch, kernel, iters)
+    p += timer(torch, plain, iters)
     return statistics.median(k), statistics.median(p)
+
+
+def achieved(ops: float, ms: float, b_ms: float) -> str:
+    """The kernel's rate and its share of the bound, for the print line."""
+    return f"tflops={ops / (ms * 1e-3) / 1e12:.1f} bound_share={b_ms / ms:.1%}"
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -223,18 +260,19 @@ def check_attention_bwd(torch, gen, dev, B, S, H, causal):
         check(cos[name] >= BWD_MIN_COS, f"attention bwd B={B} S={S} {name}: min cosine {cos[name]} < {BWD_MIN_COS}")
     k_ms, p_ms = ab_ms(
         torch, lambda: attention_bwd_reference(q, k, v, g, H, causal),
-        lambda: fused_attention_bwd(q, k, v, g, H, causal), iters=10,
+        lambda: fused_attention_bwd(q, k, v, g, H, causal), iters=10, timer=graph_ms,
     )
     to_heads = lambda t: t.reshape(B, S, H, Hd).transpose(1, 2)  # [B, H, S, Hd] views
     qh, kh, vh = (to_heads(t).detach().requires_grad_() for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=1.0)
-    fwd_ms = statistics.median(cuda_ms(torch, sdpa, iters=10))
-    both_ms = statistics.median(cuda_ms(torch, lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), to_heads(g)), iters=10))
+    fwd_ms = statistics.median(graph_ms(torch, sdpa, iters=10))
+    both_ms = statistics.median(graph_ms(torch, lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), to_heads(g)), iters=10))
     pairs = S * (S + 1) // 2 if causal else S * S  # the (query, key) pairs the data needs
-    b_ms, b_by = bound(7 * B * S * D * 2, 5 * 2 * B * H * pairs * Hd, BF16_FLOP_PER_S)
+    ops = 5 * 2 * B * H * pairs * Hd
+    b_ms, b_by = bound(7 * B * S * D * 2, ops, BF16_FLOP_PER_S)
     print(
         f"B5 attention bwd B={B} S={S} H={H} Hd=64 causal={causal}: max_abs_err={err} "
-        f"(x max|plain|: {rel}) min_cos_vs_f32={cos} kernel_ms={k_ms} plain_ms={p_ms} "
+        f"(x max|plain|: {rel}) min_cos_vs_f32={cos} kernel_ms={k_ms} {achieved(ops, k_ms, b_ms)} plain_ms={p_ms} "
         f"sdpa_bwd_ms={both_ms - fwd_ms} (fwd+bwd {both_ms} - fwd {fwd_ms}) bound_ms={b_ms} ({b_by})"
         + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
     )
@@ -282,20 +320,22 @@ def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_rea
     shape = f"B={B} S={S} H={H} Hd=64 causal={causal}" + (f" s_real={s_real}" if s_real else "")
     check(err <= ATTN_MAX_ABS, f"attention {core} {shape}: max abs err {err} > {ATTN_MAX_ABS}")
     check(cos >= ATTN_MIN_COS, f"attention {core} {shape}: min cosine {cos} < {ATTN_MIN_COS}")
-    k_ms, p_ms = ab_ms(torch, lambda: plain(q, k, v), kernel, iters=10)
+    k_ms, p_ms = ab_ms(torch, lambda: plain(q, k, v), kernel, iters=10, timer=graph_ms)
     heads = lambda t: split(t).transpose(1, 2)  # [B, H, S, Hd] views
     keys = s_real or S
     mask = None if s_real is None else (torch.arange(S, device=dev) < s_real)[None, None, None, :]
-    lib_ms = statistics.median(cuda_ms(
+    lib_ms = statistics.median(graph_ms(
         torch, lambda: F.scaled_dot_product_attention(
             heads(q), heads(k), heads(v), attn_mask=mask, is_causal=causal, scale=1.0),
         iters=10,
     ))
     pairs = S * (S + 1) // 2 if causal else S * keys  # the (query, key) pairs the data needs
-    b_ms, b_by = bound(2 * B * (S + keys) * D * 2, 4 * B * H * pairs * Hd, BF16_FLOP_PER_S)
+    ops = 4 * B * H * pairs * Hd
+    b_ms, b_by = bound(2 * B * (S + keys) * D * 2, ops, BF16_FLOP_PER_S)
     name = {"grouped": "B1 attention", "packed": "B1p attention packed"}.get(core, f"B6 attention {core}")
     print(
-        f"{name} {shape}: max_abs_err={err} min_cos_vs_f32={cos} kernel_ms={k_ms} plain_ms={p_ms} "
+        f"{name} {shape}: max_abs_err={err} min_cos_vs_f32={cos} kernel_ms={k_ms} {achieved(ops, k_ms, b_ms)} "
+        f"plain_ms={p_ms} "
         f"sdpa_ms={lib_ms} bound_ms={b_ms} ({b_by})" + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
     )
     return dict(
@@ -334,15 +374,17 @@ def check_qkv_packed(torch, gen, dev, B, S, H, causal):
     cos = F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min().item()
     check(err <= ATTN_MAX_ABS, f"B7 {shape}: max abs err {err} > {ATTN_MAX_ABS}")
     check(cos >= ATTN_MIN_COS, f"B7 {shape}: min cosine {cos} < {ATTN_MIN_COS}")
-    k_ms, p_ms = ab_ms(torch, lambda: plain(qkv), kernel, iters=10)
+    k_ms, p_ms = ab_ms(torch, lambda: plain(qkv), kernel, iters=10, timer=graph_ms)
     heads = lambda t: t.reshape(B, S, H, Hd).transpose(1, 2)
-    lib_ms = statistics.median(cuda_ms(
+    lib_ms = statistics.median(graph_ms(
         torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal, scale=scale),
         iters=10,
     ))
     b_ms, b_by = _attn_bound(B, S, H, causal)
+    pairs = S * (S + 1) // 2 if causal else S * S
     print(f"B7 attention qkv-packed {shape}: bitwise_equal_B1p=True max_abs_err={err} min_cos_vs_f32={cos} "
-          f"kernel_ms={k_ms} plain_ms={p_ms} sdpa_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+          f"kernel_ms={k_ms} {achieved(4 * B * H * pairs * 64, k_ms, b_ms)} plain_ms={p_ms} sdpa_ms={lib_ms} "
+          f"bound_ms={b_ms} ({b_by})"
           + ("  (kernel SLOWER than plain)" if k_ms > p_ms else ""))
     return dict(max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, shape=shape)

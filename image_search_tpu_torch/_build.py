@@ -49,8 +49,12 @@ _SIGNATURES = {
         [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _vp], _i,
     ),
     "isx_attention_smem_bytes": ([_i, _i], _sz),
+    "isx_attention_div_probe": ([_vp, _vp, _vp, _i, _vp], _i),
     "isx_attention_bwd": (
         [_vp] * 8 + [_i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _vp], _i,
+    ),
+    "isx_attention_bwd_probe": (
+        [_vp] * 9 + [_i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _vp], _i,
     ),
     "isx_attention_bwd_smem_bytes": ([_i, _i], _sz),
     "isx_score_int8": ([_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp], _i),
@@ -66,6 +70,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
@@ -78,7 +86,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME

@@ -27,6 +27,7 @@ approximate top-k and device meshes.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -207,7 +208,6 @@ class VectorIndex:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def _append_slab(self, rows: int) -> None:
-        self._check_memory(self.capacity + rows)
         self._emb_slabs.append(self._zeros((rows, self.dim), self._row_dtype))
         self._norm_slabs.append(self._zeros((rows,)))
         if self._scale_slabs is not None:
@@ -215,6 +215,7 @@ class VectorIndex:
         self._pen_slabs.append(self._zeros((rows,)))
 
     def _preallocate(self, capacity: int) -> None:
+        self._check_memory(max(capacity, 1))
         remaining = max(capacity, 1)
         while remaining > 0:
             rows = min(self._slab_rows, max(remaining, self._cap_multiple))
@@ -228,15 +229,25 @@ class VectorIndex:
 
     def _check_memory(self, projected_rows: int) -> None:
         """Fail with an actionable error instead of a device OOM: slabs may
-        take at most 85% of the card's memory (the towers live in the rest)."""
-        if self.device.type != "cuda":
+        take at most 85% of the card's memory (the towers live in the rest).
+        ``ISX_INDEX_HBM_BUDGET_GB``, when set, replaces that budget on any
+        device, and a value <= 0 turns it off (the reference's
+        ``_check_hbm_budget``); without it the CPU is never blocked."""
+        env = os.environ.get("ISX_INDEX_HBM_BUDGET_GB")
+        if env is not None:
+            if float(env) <= 0:
+                return
+            budget = int(float(env) * 1e9)
+        elif self.device.type == "cuda":
+            budget = int(0.85 * torch.cuda.get_device_properties(self.device).total_memory)
+        else:
             return
-        total = torch.cuda.get_device_properties(self.device).total_memory
         need = projected_rows * self._bytes_per_row()
-        if need > 0.85 * total:
+        if need > budget:
             raise RuntimeError(
-                f"index growth to {projected_rows:,} rows needs ~{need / 1e9:.1f} GB, over "
-                f"85% of the card's {total / 1e9:.1f} GB; use --index-quantize int8"
+                f"index growth to {projected_rows:,} rows needs ~{need / 1e9:.1f} GB, over the "
+                f"{budget / 1e9:.1f} GB budget (85% of the card's memory, or ISX_INDEX_HBM_BUDGET_GB); "
+                f"use --index-quantize int8 or raise ISX_INDEX_HBM_BUDGET_GB"
             )
 
     @property
@@ -263,6 +274,7 @@ class VectorIndex:
                     self._scale_slabs[-1] = grow(self._scale_slabs[-1], (new_rows,))
                 self._pen_slabs[-1] = grow(self._pen_slabs[-1], (new_rows,))
             else:
+                self._check_memory(self.capacity + self._slab_rows)
                 self._append_slab(self._slab_rows)
 
     def _locate(self, gpos: int) -> Tuple[int, int]:

@@ -10,12 +10,14 @@ computes in bf16, as the reference's train step does.
 - ``encode_image``: patchify as a matmul, class token, pre-LN, blocks
   ``0..L-2`` through the attention core (``ops.attention``: B1, B1p or B6
   forward by ``attention_route``, B5 backward), then the CLS-only last
-  block, post-LN and the projection. Under ``ISX_VIT_SPAD`` the sequence is
+  block (under ``ISX_CLS_LAST=0`` the full last block, then the CLS row),
+  post-LN and the projection. Under ``ISX_VIT_SPAD`` the sequence is
   padded once after the pre-LN and stays padded through every block (pad
   keys masked by index, pad rows never read), as the reference's is.
 - ``encode_text``: token + position embedding, blocks ``0..L-2`` causal
   through the core, then the EOS-only last block (pooled at the FIRST EOS
-  token), the final LN and the projection.
+  token; under ``ISX_EOS_LAST=0`` the full last block, then that row), the
+  final LN and the projection.
 - ``remat=True`` (training) runs the full L-layer stacks instead, each block
   under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
   over its scanned blocks does.
@@ -278,12 +280,14 @@ def encode_image(
     x, s_real = (x, None) if remat else _vit_spad(x)
     if remat:
         pooled = _encoder(x, v.blocks, False, remat_policy)[:, 0]
-    elif vc.num_layers > 1:
+    elif vc.num_layers > 1 and os.environ.get("ISX_CLS_LAST", "1") == "1":
         for blk in v.blocks[:-1]:
             x = blk(x, False, s_real)
         pooled = v.blocks[-1].forward_cls(x, s_real)[:, 0]
-    else:
-        pooled = v.blocks[0](x, False, s_real)[:, 0]
+    else:  # ISX_CLS_LAST=0: the full last block, then the CLS row
+        for blk in v.blocks:
+            x = blk(x, False, s_real)
+        pooled = x[:, 0]
     pooled = _layer_norm(pooled, v.post_ln)
     emb = _linear(pooled, v.projection)
     return l2_normalize(emb) if normalize else emb
@@ -305,12 +309,13 @@ def encode_text(
     rows = torch.arange(B, device=x.device)
     if remat:
         pooled = _encoder(x, t.blocks, True, remat_policy)[rows, eos_pos]
-    elif tc.num_layers > 1:
+    elif tc.num_layers > 1 and os.environ.get("ISX_EOS_LAST", "1") == "1":
         for blk in t.blocks[:-1]:
             x = blk(x, causal=True)
         pooled = t.blocks[-1].forward_eos(x, eos_pos)[:, 0]
-    else:
-        x = t.blocks[0](x, causal=True)
+    else:  # ISX_EOS_LAST=0: the full last block, then the EOS row
+        for blk in t.blocks:
+            x = blk(x, causal=True)
         pooled = x[rows, eos_pos]
     pooled = _layer_norm(pooled, t.final_ln)
     emb = _linear(pooled, t.projection)

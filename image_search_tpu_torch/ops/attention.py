@@ -59,6 +59,7 @@ from image_search_tpu_torch import _build
 
 NEG_INF = torch.finfo(torch.float32).min
 SUPPORTED_HEAD_DIMS = (64,)  # 80 (H/14) and 104 (bigG) come with the model ladder
+MAX_KEYS = 320  # csrc/attention_tc.cuh: kMaxKeyTiles = 20 key tiles of 16 held in registers
 _TAIL = 8  # the split kernels' tail block: Sp = s_main + 8
 
 
@@ -188,12 +189,20 @@ def _check_cuda_operands(heads, q, k, v, *more):
             raise ValueError(f"attention kernel: {name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
         if t.shape != q.shape:
             raise ValueError(f"attention kernel: {name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
-        if t.stride(2) != 1 or t.stride(0) != S * t.stride(1) or t.stride(1) % 2:
-            raise ValueError(f"attention kernel: {name} must be row-strided [B, S, H*Hd], strides {t.stride()}")
+        if t.stride(2) != 1 or t.stride(0) != S * t.stride(1) or t.stride(1) % 8 or t.data_ptr() % 16:
+            raise ValueError(
+                f"attention kernel: {name} must be row-strided [B, S, H*Hd] with 16-byte aligned rows, "
+                f"strides {t.stride()}"
+            )
     if DH % heads or DH // heads not in SUPPORTED_HEAD_DIMS:
         raise NotImplementedError(
             f"attention kernel: head dim {DH // heads if heads else '?'} not built "
             f"(built: {SUPPORTED_HEAD_DIMS})"
+        )
+    if S > MAX_KEYS:
+        raise NotImplementedError(
+            f"attention kernel: S={S} > {MAX_KEYS}: a row's logits live in registers "
+            f"(every sequence the towers run has at most 264 keys)"
         )
 
 

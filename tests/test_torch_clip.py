@@ -215,3 +215,34 @@ def test_tokenizer_eos_mismatch_raises(setup):
         tembedder.ClipEmbedder(model, tokenizer=bad)
     with pytest.raises(NotImplementedError):
         tembedder.ClipEmbedder(model, mesh=object())
+
+
+@pytest.mark.parametrize("value", [None, "1", "0"])
+@pytest.mark.parametrize("tower", ["image", "text"])
+def test_cls_and_eos_last_switches_match_jax(setup, monkeypatch, tower, value):
+    """ISX_CLS_LAST / ISX_EOS_LAST, read as the reference reads them: unset
+    or "1" runs the CLS/EOS-only last block, "0" the full last block and
+    then the pooled row. Both packages agree under each value, and the port
+    takes the truncated block exactly when the switch is on."""
+    from image_search_tpu_torch.models.clip import Block
+
+    cfg, jparams, model = setup
+    name, truncated = ("ISX_CLS_LAST", "forward_cls") if tower == "image" else ("ISX_EOS_LAST", "forward_eos")
+    if value is None:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, value)
+    calls = []
+    real = getattr(Block, truncated)
+    monkeypatch.setattr(Block, truncated, lambda self, *a, **kw: calls.append(1) or real(self, *a, **kw))
+    if tower == "image":
+        px = np.random.default_rng(7).standard_normal((3, cfg.vision.image_size, cfg.vision.image_size, 3))
+        px = px.astype(np.float32)
+        want = jclip.encode_image(jparams, cfg, jnp.asarray(px))
+        got = encode_image(model, torch.from_numpy(px))
+    else:
+        ids = _ids(cfg, 8)
+        want = jclip.encode_text(jparams, cfg, jnp.asarray(ids))
+        got = encode_text(model, torch.from_numpy(ids.astype(np.int64)))
+    _close(got.numpy(), want)
+    assert calls == ([] if value == "0" else [1])

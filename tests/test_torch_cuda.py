@@ -606,3 +606,183 @@ def test_fused_blocks_run_their_kernels_once_per_layer_but_the_last(dev, name):
     want = {"fully fused": (6, 3, 0, 0), "ln1->qkv only": (3, 0, 3, 0), "ln2->fc only": (3, 0, 0, 3)}[name]
     assert n == want
     assert F.cosine_similarity(img.float().cpu(), encode_image(cpu, px), dim=-1).min() >= 0.99
+
+
+# ---- the tensor-core attention kernels: ragged edges, pad rows, run-to-run bits ----
+
+RAGGED_S = [1, 15, 16, 17, 63, 64, 65, 77, 257, 264, 300]
+
+
+def _forward(core, q, k, v, H, causal):
+    if core == "grouped":
+        return fused_attention(q, k, v, H, causal)
+    return attn.fused_attention_packed(q, k, v, H, causal)
+
+
+def _forward_plain(core, q, k, v, H, causal):
+    B, S, D = q.shape
+    split = lambda t: t.reshape(B, S, H, 64)
+    ref = attention_reference if core == "grouped" else attn.attention_packed_reference
+    return ref(*(split(t) for t in (q, k, v)), causal).reshape(B, S, D)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", RAGGED_S)
+@pytest.mark.parametrize("core", ["grouped", "packed"])
+def test_forward_kernels_at_ragged_edges(dev, core, S, causal):
+    """B1 and B1p at every edge of the 16-row and 16-key tiles and of the
+    4-tile CTAs (a lone ragged tile, a CTA taking a remainder): every row
+    written (the output starts as NaN) and close to the plain version."""
+    B, H = 2, 3
+    q, k, v = _tower_qkv(dev, B, S, H, 7 * S + causal)
+    torch.empty(B * S * H * 64 * 4, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
+    got = _forward(core, q, k, v, H, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = _forward_plain(core, q, k, v, H, causal)
+    want32 = _forward_plain(core, q.float(), k.float(), v.float(), H, causal)
+    _close_to_plain(got, want, want32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [1, 15, 17, 65, 257, 264, 300])
+def test_qkv_packed_kernel_on_strided_views_at_ragged_edges(dev, S, causal):
+    """B7 reads q, k and v as column views of one [B, S, 3D] qkv (row stride
+    3D): close to its plain version and bitwise B1p on (q * 0.125, k, v)."""
+    B, H = 2, 4
+    qkv = _packed_qkv(dev, B, S, H, 11 * S + causal)
+    got = attn.fused_attention_qkv_packed(qkv, H, causal, 0.125)
+    q, k, v = _views(qkv, H)
+    split = lambda t: t.reshape(B, S, H, 64)
+    want = attn.attention_packed_reference(split(q), split(k), split(v), causal, 0.125).reshape(B, S, H * 64)
+    want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal, 0.125)
+    _close_to_plain(got, want, want32.reshape(B, S, H * 64))
+    assert torch.equal(got, attn.fused_attention_packed(q * 0.125, k, v, H, causal))
+
+
+@pytest.mark.parametrize("fill", ["inf", "nan", "-inf"])
+@pytest.mark.parametrize("S", [129, 257])
+def test_split_padded_kernel_ignores_non_finite_pad_rows(dev, S, fill):
+    """The padded route's keys at or past s_real are never read: inf or NaN
+    in the pad rows of k and v (and of q: those rows are never read by the
+    towers) leave every real output row bitwise as it was."""
+    B, H = 2, 4
+    Sp = (S // 128) * 128 + 8
+    q, k, v = _tower_qkv(dev, B, Sp, H, 13 * S)
+    base = attn.fused_attention_split_padded(q, k, v, H, S)
+    q2, k2, v2 = q.clone(), k.clone(), v.clone()
+    for t in (q2, k2, v2):
+        t[:, S:] = float(fill)
+    got = attn.fused_attention_split_padded(q2, k2, v2, H, S)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :S], base[:, :S])
+    assert torch.isfinite(got[:, :S].float()).all()
+
+
+def _run_twice(fn):
+    a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    return a, b
+
+
+@pytest.mark.parametrize("S,causal", [(257, False), (77, True), (300, False), (17, True)])
+def test_attention_kernels_give_the_same_bits_on_every_run(dev, S, causal):
+    """No atomics, no order that depends on scheduling: each forward entry
+    and B5 give bitwise the same output on two launches."""
+    B, H = 3, 4
+    q, k, v = _tower_qkv(dev, B, S, H, 17 * S)
+    go = torch.randn(B, S, H * 64, device=dev).bfloat16()
+    qkv = _packed_qkv(dev, B, S, H, 19 * S)
+    calls = [
+        lambda: fused_attention(q, k, v, H, causal),
+        lambda: attn.fused_attention_packed(q, k, v, H, causal),
+        lambda: attn.fused_attention_qkv_packed(qkv, H, causal, 0.125),
+        lambda: fused_attention_bwd(q, k, v, go, H, causal),
+    ]
+    if not causal and attn.split_regime(S):
+        Sp = (S // 128) * 128 + 8
+        qp, kp, vp = _tower_qkv(dev, B, Sp, H, 23 * S)
+        calls += [lambda: attn.fused_attention_split(q, k, v, H),
+                  lambda: attn.fused_attention_split_padded(qp, kp, vp, H, S)]
+    for call in calls:
+        a, b = _run_twice(call)
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", RAGGED_S)
+def test_attention_bwd_kernel_at_ragged_edges(dev, S, causal):
+    """B5 at every tile edge: within 2e-2 x max|plain| of the bf16 plain
+    version, per (batch, head) cosine >= 0.999 against f32 where the softmax
+    has a gradient (S = 1 has none: exactly zero)."""
+    B, H = 2, 3
+    q, k, v = _tower_qkv(dev, B, S, H, 29 * S + causal)
+    go = torch.randn(B, S, H * 64, generator=torch.Generator(device=dev).manual_seed(S), device=dev).bfloat16()
+    got = fused_attention_bwd(q, k, v, go, H, causal)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(q, k, v, go, H, causal)
+    want32 = attention_bwd_reference(q.float(), k.float(), v.float(), go.float(), H, causal)
+    heads = lambda t: t.float().reshape(B, S, H, 64).permute(0, 2, 1, 3).reshape(B * H, S * 64)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, want32):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous() and torch.isfinite(a.float()).all(), name
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * max(b.float().abs().max().item(), 1e-30), name
+        a, c = heads(a), heads(c)
+        live = c.norm(dim=-1) > 0
+        assert torch.equal(a[~live], torch.zeros_like(a[~live])), name
+        if live.any():
+            assert F.cosine_similarity(a[live], c[live], dim=-1).min() >= 0.999, name
+
+
+@pytest.mark.parametrize("S,causal", [(257, False), (77, True), (1, False), (17, True), (300, False)])
+def test_attention_bwd_column_pass_reproduces_the_row_pass(dev, S, causal):
+    """B5's column pass recomputes p32 and ds from the row pass's (max, sum,
+    t) with the same operands in the same roles and the same k-step order:
+    the two passes' maps (isx_attention_bwd_probe) are bitwise equal, and the
+    probed run gives the same gradients as the plain entry point."""
+    import ctypes
+
+    from image_search_tpu_torch import _build
+
+    B, H = 2, 3
+    q, k, v = _tower_qkv(dev, B, S, H, 31 * S + causal)
+    go = torch.randn(B, S, H * 64, generator=torch.Generator(device=dev).manual_seed(S + 1), device=dev).bfloat16()
+    dq, dk, dv = (torch.empty_like(go) for _ in range(3))
+    stats = torch.empty(3, B, H, S, device=dev)
+    probe = torch.zeros(2, 2, B, H, S, S, device=dev)
+    rc = _build.lib().isx_attention_bwd_probe(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats.data_ptr(), probe.data_ptr(), B, S, H, 64, q.stride(1), k.stride(1), v.stride(1), go.stride(1),
+        int(causal), ctypes.c_float(1.0), _build.stream_handle(dev),
+    )
+    _build.check(rc, "attention backward probe")
+    torch.cuda.synchronize()
+    rows, cols = probe[0], probe[1]
+    assert torch.equal(rows, cols)
+    p32 = rows[0]
+    if causal:
+        assert torch.equal(p32.triu(1), torch.zeros_like(p32))
+    assert torch.allclose(p32.sum(-1), torch.ones(B, H, S, device=dev), atol=1e-5)
+    for a, b in zip((dq, dk, dv), fused_attention_bwd(q, k, v, go, H, causal)):
+        assert torch.equal(a, b)
+
+
+def test_softmax_division_is_the_ieee_quotient(dev):
+    """B1p's, B6's, B7's and B5's p = e / sum is formed as RN(e r) plus one
+    FMA correction with r = RN(1 / sum) (isx_attention_div_probe runs that
+    function): bitwise the card's correctly rounded division over the
+    softmax's range (e in [0, 1] down to subnormals, sum >= 1)."""
+    from image_search_tpu_torch import _build
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    n = 1 << 22
+    x = torch.exp(-110 * torch.rand(n, generator=g, device=dev))  # down into the subnormals
+    x[:4] = torch.tensor([0.0, 1.0, 1e-45, 2.0**-126], device=dev)
+    y = 1 + 400 * torch.rand(n, generator=g, device=dev)
+    y[: n // 4] = torch.floor(y[: n // 4])  # integer sums: quotients that land on ties and exact values
+    out = torch.empty_like(x)
+    _build.check(_build.lib().isx_attention_div_probe(x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+                                                     _build.stream_handle(dev)), "division probe")
+    torch.cuda.synchronize()
+    assert torch.equal(out, x / y)

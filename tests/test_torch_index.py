@@ -279,3 +279,58 @@ def test_preallocated_capacity_matches_reference(quantize):
     ws, wi = ref.search(q, k=10)
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-5)
+
+
+def _tied_corpus(rng, quantize, copies=5, distinct=40):
+    """``distinct`` exact rows (exact_rows: every f32 and int8 score is exact
+    in any summation order), each stored ``copies`` times at shuffled
+    positions: duplicated photos, whose scores tie exactly in both packages."""
+    paths, emb = exact_rows(rng, distinct)
+    order = rng.permutation(distinct * copies)
+    emb = np.repeat(emb, copies, axis=0)[order]
+    return [f"/pics/dup_{i:05d}.jpg" for i in range(len(emb))], emb
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("k", [1, 12, 37, 200])
+def test_search_ties_match_reference_ids(quantize, k):
+    """Duplicated rows: values AND ids equal the reference's, in its order,
+    also where the k boundary cuts through a group of copies."""
+    rng = np.random.default_rng(20 + k)
+    paths, emb = _tied_corpus(rng, quantize)
+    port, ref = _pair(quantize, paths, emb)
+    _, q = exact_rows(rng, 3)
+    (gs, gi), (ws, wi) = port.search(q, k=k), ref.search(q, k=k)
+    np.testing.assert_array_equal(gs, ws)
+    np.testing.assert_array_equal(gi, wi)
+    assert k == 1 or (np.diff(gs, axis=1) == 0).any()  # the ties are there
+    sels = [[paths[0]], [], [paths[3], paths[9]]]
+    (gs, gi), (ws, wi) = (ix.search_with_feedback_batch(q, sels, k=k) for ix in (port, ref))
+    np.testing.assert_array_equal(gi, wi)
+
+
+@pytest.mark.parametrize(
+    "budget,grows", [(None, True), ("0", True), ("-1", True), ("0.005", False), ("0.01", True)]
+)
+def test_hbm_budget_switch_matches_reference(monkeypatch, budget, grows):
+    """ISX_INDEX_HBM_BUDGET_GB read as the reference reads it: set, it
+    replaces the 85% budget on any device (<= 0 turns it off); unset, the CPU
+    is never blocked. Growth to 24,576 rows of 264 bytes (6.5 MB) and a
+    20,000-row preallocation (5.3 MB) pass or raise alike in both packages."""
+    if budget is None:
+        monkeypatch.delenv("ISX_INDEX_HBM_BUDGET_GB", raising=False)
+    else:
+        monkeypatch.setenv("ISX_INDEX_HBM_BUDGET_GB", budget)
+    paths, emb = make_data(np.random.default_rng(6), 9000)
+    for make in (lambda **kw: VectorIndex(DIM, device="cpu", **kw), lambda **kw: JaxIndex(DIM, **kw)):
+        ix = make()
+        if grows:
+            assert ix.add(paths, emb) == 9000
+        else:
+            with pytest.raises(RuntimeError, match="ISX_INDEX_HBM_BUDGET_GB"):
+                ix.add(paths, emb)
+        if grows:
+            assert make(capacity=20_000).capacity >= 20_000
+        else:
+            with pytest.raises(RuntimeError, match="ISX_INDEX_HBM_BUDGET_GB"):
+                make(capacity=20_000)

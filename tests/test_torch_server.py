@@ -317,3 +317,53 @@ def test_duplicates_errors(servers, with_duplicate, monkeypatch):
         time.sleep(0.05)
     assert status == 500 and body == {"job": job["job"], "state": "failed"}
     assert _request("GET", base + "/duplicates")[0] == 500
+
+
+# ---- POST /search on an index of duplicated photos: tied scores ----
+
+
+@pytest.fixture(scope="module", params=[None, "int8"], ids=["f32", "int8"])
+def tied_servers(request, tmp_path_factory):
+    """Both engines over one index of 24 distinct rows stored 5 times each
+    (duplicated photos), added directly: rows with four entries of +-1/2, so
+    the stored rows are exact and every copy scores exactly like the others."""
+    root = tmp_path_factory.mktemp("torch_tied")
+    media = str(root / "pics")
+    os.makedirs(media)
+    cfg = tiny_test_config()
+    ckpt = str(root / "tiny.safetensors")
+    save_checkpoint(ckpt, jax_init_params(jax.random.key(4), cfg), cfg)
+    common = dict(model_weights=ckpt, media_dir=media, chunk_size=3, k=50, index_quantize=request.param)
+    ref = RefEngine(RefArgs(index_dir=str(root / "ref_idx"), **common))
+    port = SearchEngine(ServerArgs(index_dir=str(root / "port_idx"), **common), device="cpu")
+    rng = np.random.default_rng(12)
+    rows = np.zeros((24, cfg.projection_dim), np.float32)
+    for r in rows:
+        r[rng.choice(cfg.projection_dim, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+    emb = np.repeat(rows, 5, axis=0)[rng.permutation(120)]
+    paths = [os.path.join(media, f"dup_{i:03d}.png") for i in range(120)]
+    assert port.index.add(paths, emb) == ref.index.add(paths, emb) == 120
+    server = make_server(port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield ref, port, f"http://127.0.0.1:{server.server_port}"
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("query", ["a dark square", "red", ""])
+@pytest.mark.parametrize("n_marked", [0, 2])
+def test_search_ties_return_reference_ids_in_order(tied_servers, query, n_marked):
+    """Copies of a photo score alike: the port returns the reference's ids
+    in the reference's order, the k = 50 boundary inside a group of copies."""
+    ref, port, base = tied_servers
+    marked = [d["image_path"] for d in ref.search(query)[:n_marked]]
+    want = ref.search(query, marked)
+    status, body = _request("POST", base + "/search", {"q": query, "referenced_images": marked})
+    assert status == 200
+    got = json.loads(body)["images"]
+    assert [d["id"] for d in got] == [d["id"] for d in want]
+    scores = [d["score"] for d in got]
+    assert len(got) == 50 and len(set(scores)) < 50  # tied scores among the results
