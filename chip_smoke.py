@@ -16,13 +16,16 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    computes the same function where there is one: attention by its four
    routes (B1 and B1p at B=160 S=257 and B=32 S=77 causal, B6 split at
    B=160 S=257 and padded at Sp=264), int8 scores at B=1, 8 and the legacy
-   duplicate scan's 1024 (B2), the block-pair mask at 262,144 x 262,144
+   duplicate scan's 1024 (B2, one launch per call; beside it torch._int_mm
+   with the epilogue as torch ops), the block-pair mask at 262,144 x 262,144
    rows, the certified route's one call, and at 16,384 x 262,144 from row
    block 512 (B3), values at 65,536 x 1,048,576 (B4); attention over one
    packed qkv (B7, also bitwise against B1p) and the qkv projection fused
-   into attention (B8) at the B1 shapes, and the fused LayerNorm -> matmul
-   (B9) at the vision tower's 41,120 rows, ln1 -> qkv and ln2 -> fc. The
-   attention kernels (B1, B1p, B5, B6, B7), their plain versions and SDPA
+   into attention (B8, also bitwise against B7 on the qkv its projection
+   phase writes, and that phase timed alone) at the B1 shapes, and the
+   fused LayerNorm -> matmul (B9) at the vision tower's 41,120 rows, ln1 ->
+   qkv and ln2 -> fc. The
+   attention kernels (B1, B1p, B5, B6, B7, B8), their plain versions and SDPA
    are timed by replaying a CUDA graph of 10 calls (device time: a text-size
    kernel is shorter than one launch from Python) and print their TFLOP/s
    and share of the bound; the others by CUDA events around each call;
@@ -41,7 +44,9 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    ``ISX_ATTN_PIPE=0`` (B1p, never B1) and ``ISX_VIT_SPAD=264``;
 6. GET /duplicates on the same server by its three routes: legacy on the
    photos plus byte-identical copies (groups against a brute-force f32 pair
-   set), certified on 262,144 concentrated 768-d rows through ?async=1 and
+   set), and the legacy scan run directly on 196,608 rows (just under the
+   sketch cut) with byte-identical copies (every copy found; wall time and
+   B2's share of it), certified on 262,144 concentrated 768-d rows through ?async=1 and
    ?job= (pairs against a brute-force f32 oracle), approximate on 1,048,576
    flat rows (every planted pair found, every emitted pair's score checked);
 7. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
@@ -96,6 +101,8 @@ SCORE_ATOL = 2e-4  # an emitted pair's score vs its own f32 dot
 DIM = 768  # ViT-L/14 embeddings
 CERT_ROWS = 262_144  # the certified route's corpus: over the engine's 200,000-row cut
 APPROX_ROWS = 1_048_576  # the approximate route's corpus: over its 1,000,000-row cut
+LEGACY_ROWS = 196_608  # the legacy route's largest corpus: just under the engine's 200,000-row sketch cut
+LEGACY_COPIES = [(3, 150_000), (5, 100_000), (1024, 1025), (77_777, 196_607)]  # (row, its byte-identical copy)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bounds below
 HBM_BYTES_PER_S = 3.35e12
@@ -390,9 +397,24 @@ def check_qkv_packed(torch, gen, dev, B, S, H, causal):
                 bound_ms=b_ms, bound_by=b_by, shape=shape)
 
 
+def projection_within_roundoff(torch, qkv, x, w, b) -> bool:
+    """qkv (B8's projection phase) against bf16(x w^T) + b from torch's f32
+    product: the two f32 sums of D products differ in order, each within
+    D * 2^-24 * sum |x w| of the exact sum, and each result then takes two
+    bf16 roundings (the product, then the bias add), 2^-8 of a value each."""
+    acc = torch.matmul(x.float(), w.float().t())
+    tol = 2.0**-7 * (2 * acc.abs() + b.float().abs())
+    tol += 2 * x.shape[-1] * 2.0**-24 * torch.matmul(x.float().abs(), w.float().abs().t())
+    err = (qkv.float() - (acc.to(torch.bfloat16) + b).float()).abs()
+    return bool((err <= tol).all())
+
+
 def check_qkv_attention(torch, gen, dev, B, S, H, causal):
     """B8 against its plain version (the projection accumulated in f32, then
-    B7's plain attention), timed beside F.linear + SDPA on the same inputs."""
+    B7's plain attention), and bitwise against B7 on the qkv that its
+    projection phase writes (``qkv_attention_probe``); timed by CUDA-graph
+    replay beside the probe (phase 1 alone) and F.linear + SDPA on the same
+    inputs."""
     from image_search_tpu_torch.ops import attention as A
 
     F = torch.nn.functional
@@ -401,28 +423,39 @@ def check_qkv_attention(torch, gen, dev, B, S, H, causal):
     w = (torch.randn(3 * D, D, generator=gen, device=dev) * D**-0.5).to(torch.bfloat16)
     b = (0.1 * torch.randn(3 * D, generator=gen, device=dev)).to(torch.bfloat16)
     kernel = lambda: A.fused_qkv_attention(x, w, b, H, causal, scale)
+    probe = lambda: A.qkv_attention_probe(x, w, b, H)
     got = kernel()
     torch.cuda.synchronize()
+    shape = f"B={B} S={S} D={D} H={H} Hd=64 causal={causal} sm_scale={scale}"
+    qkv = probe()
+    check(torch.equal(got, A.fused_attention_qkv_packed(qkv, H, causal, scale)),
+          f"B8 {shape}: not bitwise equal to B7 on its own projection")
+    check(projection_within_roundoff(torch, qkv, x, w, b), f"B8 {shape}: projection off bf16(x w^T) + b")
+    del qkv
     want = A.qkv_attention_reference(x, w, b, H, causal, scale)
     want32 = A.qkv_attention_reference(x.float(), w.float(), b.float(), H, causal, scale)
-    shape = f"B={B} S={S} D={D} H={H} Hd=64 causal={causal} sm_scale={scale}"
     err = (got.float() - want.float()).abs().max().item()
     cos = F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min().item()
+    del want32
     check(err <= ATTN_MAX_ABS, f"B8 {shape}: max abs err {err} > {ATTN_MAX_ABS}")
     check(cos >= ATTN_MIN_COS, f"B8 {shape}: min cosine {cos} < {ATTN_MIN_COS}")
-    k_ms, p_ms = ab_ms(torch, lambda: A.qkv_attention_reference(x, w, b, H, causal, scale), kernel, iters=10)
+    k_ms, p_ms = ab_ms(torch, lambda: A.qkv_attention_reference(x, w, b, H, causal, scale), kernel, iters=10,
+                       timer=graph_ms)
+    proj_ms = statistics.median(graph_ms(torch, probe, iters=10))
 
     def library():
         qkv = F.linear(x, w, b).reshape(B, S, 3, H, Hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, Hd] views
         return F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], is_causal=causal, scale=scale)
 
-    lib_ms = statistics.median(cuda_ms(torch, library, iters=10))
+    lib_ms = statistics.median(graph_ms(torch, library, iters=10))
     b_ms, b_by = _attn_bound(B, S, H, causal, extra_ops=2 * B * S * D * 3 * D,
                              extra_bytes=(3 * D * D + 3 * D) * 2 - 2 * B * S * D * 2)
-    print(f"B8 qkv-projection attention {shape}: max_abs_err={err} min_cos_vs_f32={cos} kernel_ms={k_ms} "
+    ops = 2 * B * S * D * 3 * D + 4 * B * H * (S * (S + 1) // 2 if causal else S * S) * 64
+    print(f"B8 qkv-projection attention {shape}: bitwise_equal_B7_on_probe=True max_abs_err={err} "
+          f"min_cos_vs_f32={cos} kernel_ms={k_ms} {achieved(ops, k_ms, b_ms)} phase1_ms={proj_ms} "
           f"plain_ms={p_ms} linear+sdpa_ms={lib_ms} bound_ms={b_ms} ({b_by})"
           + ("  (kernel SLOWER than plain)" if k_ms > p_ms else ""))
-    return dict(max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+    return dict(max_abs_err=err, min_cos=cos, ms=k_ms, phase1_ms=proj_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, shape=shape)
 
 
@@ -468,7 +501,7 @@ def phase_kernels(torch, gen, dev):
         blockpair_mask, blockpair_mask_reference, blockpair_values, blockpair_values_reference,
     )
     from image_search_tpu_torch.ops.score_stream import (
-        NEG_INF, query_chunks, quantize_rows_int8, scores_int8_reference, stream_scores_int8,
+        NEG_INF, quantize_rows_int8, scores_int8_reference, score_plan, stream_scores_int8,
     )
 
     F = torch.nn.functional
@@ -506,7 +539,7 @@ def phase_kernels(torch, gen, dev):
                 got = stream_scores_int8(rows, qi, qs, scales, limit, pen)
                 n_launch = stream_scores_int8.launches - n0
                 want = scores_int8_reference(rows, qi, qs, scales, limit, pen)
-                check(n_launch == len(query_chunks(B, D)), f"int8 scores B={B}: {n_launch} launches")
+                check(n_launch == 1, f"int8 scores B={B}: {n_launch} launches (one per call)")
                 check(torch.equal(got, want), f"int8 scores B={B} pens={pen is not None}: not bitwise equal")
                 err = (got - want).abs().max().item()
                 k_ms, p_ms = ab_ms(
@@ -517,20 +550,34 @@ def phase_kernels(torch, gen, dev):
                 )
                 nbytes = N * D + B * D + 4 * B + 4 * N + 4 * B * N + (4 * N if pen is not None else 0)
                 b_ms, b_by = bound(nbytes, 2 * B * N * D, INT8_OP_PER_S)
-                # the integer product alone (no scales, no mask): it does less than
-                # B2, and needs more than 16 queries
-                lib_ms = None
-                if B > 16 and pen is None:
-                    lib_ms = statistics.median(cuda_ms(torch, lambda: torch._int_mm(qi, rows.t()), iters=10))
+                # torch._int_mm (needs more than 16 queries) does the integer
+                # product alone; with the epilogue as torch ops it computes B2's
+                # function, and that is the library column
+                lib_ms = mm_ms = None
+                if B > 16:
+                    gpos = torch.arange(N, device=dev)[None, :]
+
+                    def int_mm_epilogue():
+                        s = torch._int_mm(qi, rows.t()).float() * qs[:, None]
+                        s = s * scales[None, :]
+                        if pen is not None:
+                            s = s + pen[None, :]
+                        return torch.where(gpos < limit, s, NEG_INF)
+
+                    check(torch.equal(int_mm_epilogue(), want), f"int8 scores B={B}: _int_mm + epilogue differs")
+                    mm_ms = statistics.median(cuda_ms(torch, lambda: torch._int_mm(qi, rows.t()), iters=10))
+                    lib_ms = statistics.median(cuda_ms(torch, int_mm_epilogue, iters=10))
+                plan = score_plan(B, N, D)
                 res[("score", B, pen is not None)] = dict(
-                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by, shape=f"N={N} D={D} B={B} pens={pen is not None}",
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, int_mm_ms=mm_ms, bound_ms=b_ms,
+                    bound_by=b_by, shape=f"N={N} D={D} B={B} pens={pen is not None} BM={plan['bm']}",
                 )
                 gbs = N * D / (k_ms * 1e-3) / 1e9
                 print(
                     f"B2 int8 scores N={N} D={D} B={B} pens={pen is not None} limit={limit}: "
-                    f"bitwise_equal=True launches={n_launch} kernel_ms={k_ms} ({gbs:.1f} GB/s of rows) "
-                    f"plain_ms={p_ms} int_mm_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+                    f"bitwise_equal=True launches={n_launch} BM={plan['bm']} grid={plan['grid']} "
+                    f"kernel_ms={k_ms} ({gbs:.1f} GB/s of rows, bound_share={b_ms / k_ms:.1%}) "
+                    f"plain_ms={p_ms} int_mm_ms={mm_ms} int_mm+epilogue_ms={lib_ms} bound_ms={b_ms} ({b_by})"
                     + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
                 )
         del rows, scales, pens, got, want
@@ -975,6 +1022,57 @@ def _timed_scan(torch, index, scan: str, threshold: float, **build_kw):
     return pairs, ms
 
 
+def legacy_large(torch, dev, media):
+    """VectorIndex.find_near_duplicates (the legacy route) on LEGACY_ROWS
+    random 768-d rows with LEGACY_COPIES byte-identical copies: every copy
+    found and nothing else; wall time, B2's launches, and the device time of
+    one batch's B2 calls and exact top-k, timed apart on the same slabs."""
+    from image_search_tpu_torch.index.index import _gather_rows
+    from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, stream_scores_int8
+    from image_search_tpu_torch.ops.topk import exact_topk
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, thr, batch = LEGACY_ROWS, 0.95, 1024
+    x = torch.nn.functional.normalize(torch.randn(n, DIM, generator=gen, device=dev), dim=-1)
+    for i, j in LEGACY_COPIES:
+        x[j] = x[i]
+    index, build_s = _synthetic_index(torch, dev, media, x)
+    del x
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = index.find_near_duplicates(threshold=thr, batch=batch)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    found = {(i, j) for i, j, _ in pairs}
+    check(found == set(LEGACY_COPIES), f"legacy {n} rows: pairs {sorted(found ^ set(LEGACY_COPIES))[:5]} differ")
+    check(min(sc for _, _, sc in pairs) > 0.999, f"legacy {n} rows: a copy scored below 0.999")
+    batches = -(-n // batch)
+    check(counts["stream_scores_int8"] == batches * len(index._snapshot()[0]),
+          f"legacy {n} rows: {counts['stream_scores_int8']} B2 launches for {batches} batches")
+    # one batch's work, timed apart: B2 on every slab, then the exact top-k
+    slabs, _, scales, pens = index._snapshot()
+    size = index._size
+    qi, qs = quantize_queries_int8(_gather_rows(slabs, scales, torch.arange(batch, device=dev)))
+    starts = [sum(sl.shape[0] for sl in slabs[:i]) for i in range(len(slabs))]
+
+    def b2_batch():
+        return [stream_scores_int8(sl, qi, qs, scales[i], size - starts[i], None if pens is None else pens[i])
+                for i, sl in enumerate(slabs)]
+
+    scores = torch.cat(b2_batch(), dim=1)
+    b2_ms = statistics.median(cuda_ms(torch, b2_batch, iters=5))
+    topk_ms = statistics.median(cuda_ms(torch, lambda: exact_topk(scores, 9), iters=5))
+    del scores
+    share = batches * b2_ms / wall_ms
+    print(f"duplicates legacy (direct) {n} rows x {DIM} int8, {len(slabs)} slab(s), batch {batch}: "
+          f"pairs={len(pairs)} (planted {len(LEGACY_COPIES)}, all found) wall_ms={wall_ms} "
+          f"B2 launches={counts['stream_scores_int8']} B2 per batch={b2_ms} ms, B2 share={share:.1%} "
+          f"exact_topk per batch={topk_ms} ms ({batches * topk_ms / wall_ms:.1%}) corpus add {build_s:.1f} s")
+    return dict(ms=wall_ms, counts=counts, rows=n, pairs=len(pairs), b2_batch_ms=b2_ms, b2_share=share,
+                topk_batch_ms=topk_ms)
+
+
 def phase_duplicates(torch, dev, engine, base, media):
     """GET /duplicates by its three routes on the served engine. Each route's
     kernel counts are set to 0 just before its request and read just after."""
@@ -1015,6 +1113,11 @@ def phase_duplicates(torch, dev, engine, base, media):
     print(f"duplicates legacy: {len(paths)} photos threshold={thr} groups={sorted(map(len, got))} "
           f"wall_ms={ms} launches={counts}")
     del x, g
+
+    # 1b. legacy at the size its users reach: LEGACY_ROWS int8 rows, just under
+    # the engine's sketch cut, with byte-identical planted copies, scanned
+    # directly; B2's share of the wall time from its own timed calls
+    res["legacy_large"] = legacy_large(torch, dev, media)
 
     # 2. certified: CERT_ROWS concentrated rows (rank 32 + noise), 64 planted pairs
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1457,7 +1560,7 @@ def main() -> int:
         "train_grad_cos": grad["cos_global"],
         "duplicates_ms": {k: v["ms"] for k, v in dup.items()},
         "duplicates_direct_ms": {k: {p: v[p] for p in ("sketch_ms", "phase1_ms", "rescore_ms")}
-                                 for k, v in dup.items() if k != "legacy"}}))
+                                 for k, v in dup.items() if k in ("certified", "approximate")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

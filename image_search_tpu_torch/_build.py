@@ -57,11 +57,12 @@ _SIGNATURES = {
         [_vp] * 9 + [_i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _f, _vp], _i,
     ),
     "isx_attention_bwd_smem_bytes": ([_i, _i], _sz),
-    "isx_score_int8": ([_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp], _i),
+    "isx_score_int8": ([_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp], _i),
     "isx_blockpair_mask": ([_vp, _vp, _i, _i, _i, _f, _i, _vp, _vp], _i),
     "isx_blockpair_values": ([_vp, _vp, _i, _i, _i, _i, _vp, _vp], _i),
     "isx_ln_matmul": ([_vp] * 6 + [_i, _i, _i, _f, _vp], _i),
     "isx_qkv_attention": ([_vp] * 4 + [_i, _i, _i, _i, _i, _f, _vp], _i),
+    "isx_qkv_attention_probe": ([_vp] * 4 + [_i, _i, _i, _i, _vp], _i),
     "isx_qkv_attention_smem_bytes": ([_i], _sz),
 }
 

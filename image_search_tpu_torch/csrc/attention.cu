@@ -77,62 +77,6 @@ namespace {
 
 using namespace attn_tc;
 
-// PV of one warp tile (rows r0..r0+15) from p in s, key tiles 0..nkt-1 of
-// V in shared memory: the main block's tiles (below kt_split) into one f32
-// accumulator, the split tail's into another, added main + tail; then the
-// grouped route's 1/sum, bf16 rounding and the rows below S stored.
-template <int HD, bool NORM_P, int KT>
-__device__ __forceinline__ void tile_pv_store(const float (&s)[2 * KT][4], const float (&sum)[2], const bf16* vs,
-                                              bf16* __restrict__ o, long long o_ld, long long tok0, long long col,
-                                              int r0, int S, int nkt, int kt_split) {
-  constexpr int DT = HD / 8;  // 8-wide n-tiles of the output
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  const int kt_main = min(nkt, kt_split);
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt < kt_main) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]), pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                              pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                              pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-      tile_acc<HD>(acc, pa, vs, kt * 16);
-    }
-  }
-  if (kt_main < nkt) {  // the split kernels' tail block, summed on its own
-    float tl[DT][4];
-#pragma unroll
-    for (int d = 0; d < DT; ++d) tl[d][0] = tl[d][1] = tl[d][2] = tl[d][3] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      if (kt >= kt_main && kt < nkt) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]), pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                                pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                                pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-        tile_acc<HD>(tl, pa, vs, kt * 16);
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[d][e] = __fadd_rn(acc[d][e], tl[d][e]);
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + half * 8;
-    if (r < S) {
-      const float f = NORM_P ? 1.f : 1.0f / sum[half];  // the grouped kernel's factor on the accumulator
-      bf16* orow = o + (tok0 + r) * o_ld + col + 2 * t;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const float x0 = acc[d][2 * half], x1 = acc[d][2 * half + 1];
-        *reinterpret_cast<uint32_t*>(orow + d * 8) = NORM_P ? pack_bf16(x0, x1) : pack_bf16(x0 * f, x1 * f);
-      }
-    }
-  }
-}
-
 // NORM_P false: the grouped kernel's rounding (bf16(e), accumulator * 1/sum);
 // true: the packed and split kernels' (bf16(e / sum), accumulator as is).
 // Rows 0..S-1 of q and o are computed; keys 0..n_keys-1 of k and v take part

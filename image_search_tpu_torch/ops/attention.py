@@ -464,17 +464,8 @@ def qkv_attention_reference(x, qkv_w, qkv_b, heads: int, causal: bool = False, s
     return attention_qkv_packed_reference(qkv, heads, causal, sm_scale)
 
 
-def fused_qkv_attention(x, qkv_w, qkv_b, heads: int, causal: bool = False, sm_scale: float = 1.0):
-    """B8: the qkv projection and attention in one kernel, x [B, S, D] (LN'd),
-    qkv_w [3D, D] (``nn.Linear``'s layout, the reference's ``[D, 3D]``
-    transposed), qkv_b [3D] -> [B, S, D]; q unscaled, ``sm_scale`` on the
-    f32 logits. On the card: bf16, head dim in ``SUPPORTED_HEAD_DIMS``,
-    contiguous operands; anything else raises."""
+def _check_qkv_operands(x, qkv_w, qkv_b, heads: int):
     B, S, D = x.shape
-    if x.device.type == "cpu":
-        return qkv_attention_reference(x, qkv_w, qkv_b, heads, causal, sm_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_qkv_attention: no route for device {x.device}")
     for name, t, shape in (("x", x, (B, S, D)), ("qkv_w", qkv_w, (3 * D, D)), ("qkv_b", qkv_b, (3 * D,))):
         if t.device != x.device or t.dtype != torch.bfloat16:
             raise ValueError(f"qkv attention kernel: {name} must be bf16 on {x.device}, got {t.dtype} on {t.device}")
@@ -487,8 +478,27 @@ def fused_qkv_attention(x, qkv_w, qkv_b, heads: int, causal: bool = False, sm_sc
             f"qkv attention kernel: head dim {D // heads if heads else '?'} not built "
             f"(built: {SUPPORTED_HEAD_DIMS})"
         )
+    if S > MAX_KEYS:
+        raise NotImplementedError(
+            f"qkv attention kernel: S={S} > {MAX_KEYS}: a row's logits live in registers, as in B7"
+        )
     lib = _build.lib()
     _check_smem(x.device, lib.isx_qkv_attention_smem_bytes(S), S)
+    return lib
+
+
+def fused_qkv_attention(x, qkv_w, qkv_b, heads: int, causal: bool = False, sm_scale: float = 1.0):
+    """B8: the qkv projection and attention in one kernel, x [B, S, D] (LN'd),
+    qkv_w [3D, D] (``nn.Linear``'s layout, the reference's ``[D, 3D]``
+    transposed), qkv_b [3D] -> [B, S, D]; q unscaled, ``sm_scale`` on the
+    f32 logits. On the card: bf16, head dim in ``SUPPORTED_HEAD_DIMS``,
+    S <= ``MAX_KEYS``, contiguous operands; anything else raises."""
+    B, S, D = x.shape
+    if x.device.type == "cpu":
+        return qkv_attention_reference(x, qkv_w, qkv_b, heads, causal, sm_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_qkv_attention: no route for device {x.device}")
+    lib = _check_qkv_operands(x, qkv_w, qkv_b, heads)
     out = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
     rc = lib.isx_qkv_attention(
         x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), out.data_ptr(),
@@ -497,6 +507,25 @@ def fused_qkv_attention(x, qkv_w, qkv_b, heads: int, causal: bool = False, sm_sc
     _build.check(rc, "qkv attention kernel launch")
     fused_qkv_attention.launches += 1
     return out
+
+
+def qkv_attention_probe(x, qkv_w, qkv_b, heads: int):
+    """B8's projection phase alone, on the card: the packed qkv [B, S, 3D]
+    that :func:`fused_qkv_attention`'s attention phase reads, rounded as it
+    rounds it. For the card tests (B8 against B7 on this qkv) and for
+    timing the projection apart from the whole; no path calls it, and it
+    counts no launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"qkv_attention_probe: runs on the card only, got {x.device}")
+    lib = _check_qkv_operands(x, qkv_w, qkv_b, heads)
+    B, S, D = x.shape
+    qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
+    rc = lib.isx_qkv_attention_probe(
+        x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), qkv.data_ptr(),
+        B, S, heads, D // heads, _build.stream_handle(x.device),
+    )
+    _build.check(rc, "qkv attention probe launch")
+    return qkv
 
 
 fused_qkv_attention.launches = 0

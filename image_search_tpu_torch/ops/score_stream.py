@@ -18,7 +18,7 @@ import torch
 from image_search_tpu_torch import _build
 
 NEG_INF = torch.finfo(torch.float32).min
-SMEM_BYTES = 232448  # shared memory a block may use on Hopper: the kernel stages B x D int8 queries
+BN = 128  # slab rows per CTA tile of the kernel (csrc/score_stream.cu: kBN)
 
 
 def quantize_rows_int8(x: torch.Tensor):
@@ -86,17 +86,16 @@ def _check_cuda_operands(rows, qi, qs, scales, pens):
             )
     if d % 4:
         raise ValueError(f"score kernel: D={d} must be a multiple of 4")
-    if d > SMEM_BYTES // 8:
-        raise ValueError(f"score kernel: D={d} leaves no room for 8 queries in shared memory")
 
 
-def query_chunks(b: int, d: int):
-    """The launches of one call: [lo, hi) query ranges of at most
-    floor(SMEM_BYTES / D) queries, rounded down to a multiple of 8 (the
-    kernel's queries per pass), so that each chunk's queries fit in shared
-    memory. Each launch reads the whole slab once more."""
-    step = SMEM_BYTES // d // 8 * 8
-    return [(lo, min(lo + step, b)) for lo in range(0, b, step)]
+def score_plan(b: int, n: int, d: int):
+    """The one launch of a call: queries per CTA tile (BM: 16 for B <= 16,
+    64 up to 64 queries, 128 above), slab rows per tile (BN) and the tile
+    grid (query tiles, row tiles), launched as one dimension of
+    ``m_tiles * n_tiles`` CTAs, query tiles fastest. D only has to be a
+    multiple of 4: the kernel masks its last step over D."""
+    bm = 16 if b <= 16 else 64 if b <= 64 else 128
+    return dict(bm=bm, bn=BN, grid=(-(-b // bm), -(-n // BN)))
 
 
 def stream_scores_int8(rows, qi, qs, scales, limit: int, pens=None):
@@ -104,9 +103,8 @@ def stream_scores_int8(rows, qi, qs, scales, limit: int, pens=None):
 
     rows [N, D] int8, qi [B, D] int8, qs [B] f32, scales [N] f32, pens [N] f32
     additive penalties (0 live, NEG_INF tombstoned) or None; rows at
-    position >= ``limit`` score NEG_INF. A batch whose queries do not fit in
-    shared memory runs as several launches over query chunks
-    (:func:`query_chunks`), each writing its rows of the output."""
+    position >= ``limit`` score NEG_INF. One launch for any batch
+    (:func:`score_plan`)."""
     if rows.device.type == "cpu":
         return scores_int8_reference(rows, qi, qs, scales, limit, pens)
     if rows.device.type != "cuda":
@@ -116,15 +114,13 @@ def stream_scores_int8(rows, qi, qs, scales, limit: int, pens=None):
     b = qi.shape[0]
     out = torch.empty((b, n), dtype=torch.float32, device=rows.device)
     limit = max(-(2**31), min(int(limit), 2**31 - 1))
-    lib, stream = _build.lib(), _build.stream_handle(rows.device)
-    for lo, hi in query_chunks(b, d):
-        rc = lib.isx_score_int8(
-            rows.data_ptr(), qi[lo:hi].data_ptr(), qs[lo:hi].data_ptr(), scales.data_ptr(),
-            None if pens is None else pens.data_ptr(), out[lo:hi].data_ptr(),
-            n, d, hi - lo, limit, stream,
-        )
-        _build.check(rc, "score kernel launch")
-        stream_scores_int8.launches += 1
+    rc = _build.lib().isx_score_int8(
+        rows.data_ptr(), qi.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+        None if pens is None else pens.data_ptr(), out.data_ptr(),
+        n, d, b, limit, score_plan(b, n, d)["bm"], _build.stream_handle(rows.device),
+    )
+    _build.check(rc, "score kernel launch")
+    stream_scores_int8.launches += 1
     return out
 
 

@@ -24,7 +24,6 @@ from image_search_tpu_torch.ops.attention import (
 )
 from image_search_tpu_torch.ops.score_stream import (
     NEG_INF,
-    query_chunks,
     quantize_rows_int8,
     scores_int8_reference,
     stream_scores_int8,
@@ -193,8 +192,17 @@ def test_attention_bwd_kernel_rejects_what_it_cannot_take(dev):
         fused_attention_bwd(x, x, x, torch.zeros(1, 9, 128, device=dev, dtype=torch.bfloat16), 2)
 
 
-@pytest.mark.parametrize("N,D,B,pens", [(100_003, 768, 1, False), (100_003, 768, 8, True), (4099, 768, 32, True), (777, 12, 3, True)])
+@pytest.mark.parametrize(
+    "N,D,B,pens",
+    [(100_003, 768, 1, False), (100_003, 768, 8, True), (4099, 768, 32, True), (777, 12, 3, True),
+     (10_007, 768, 7, True), (10_007, 768, 16, False), (10_007, 768, 17, True), (10_007, 768, 129, False),
+     (1000, 100, 17, True), (130, 36, 1, False)],
+)
 def test_score_kernel_bitwise_equals_plain(dev, N, D, B, pens):
+    """One launch, bitwise the plain version, at every ragged edge: B across
+    the 16 / 64 / 128 query tiles, N not a multiple of the 128-row tile, D
+    not a multiple of the 64-byte ring step (and of 16: the 4-byte copies),
+    and limit at N, just below it, at 0, inside a row tile and past N."""
     g = torch.Generator(device=dev).manual_seed(N + B)
     rows, scales = quantize_rows_int8(F.normalize(torch.randn(N, D, generator=g, device=dev), dim=-1))
     qi, qs = quantize_rows_int8(F.normalize(torch.randn(B, D, generator=g, device=dev), dim=-1))
@@ -202,7 +210,7 @@ def test_score_kernel_bitwise_equals_plain(dev, N, D, B, pens):
     if pens:
         pen = torch.zeros(N, device=dev)
         pen[torch.randint(0, N, (N // 50 + 1,), generator=g, device=dev)] = NEG_INF
-    for limit in (N, N - 3, 0):
+    for limit in (N, N - 3, 0, min(N, 128) - 37, N + 1000):
         n0 = stream_scores_int8.launches
         got = stream_scores_int8(rows, qi, qs, scales, limit, pen)
         torch.cuda.synchronize()
@@ -210,19 +218,23 @@ def test_score_kernel_bitwise_equals_plain(dev, N, D, B, pens):
         assert torch.equal(got, scores_int8_reference(rows, qi, qs, scales, limit, pen))
 
 
-def test_score_kernel_chunks_a_large_batch(dev):
-    """The legacy duplicate scan's batch of 1024 queries at D = 768 does not
-    fit in shared memory: it runs as one launch per query chunk, bitwise
-    equal to the plain version."""
-    g = torch.Generator(device=dev).manual_seed(1)
-    N, D, B = 65_536, 768, 1024
+@pytest.mark.parametrize("B", [1024, 1500])
+def test_score_kernel_takes_a_large_batch_in_one_launch(dev, B):
+    """The legacy duplicate scan's batch of 1024 queries at D = 768 (and a
+    batch whose last query tile is ragged): one launch, bitwise equal to the
+    plain version, with and without penalties."""
+    g = torch.Generator(device=dev).manual_seed(B)
+    N, D = 65_536, 768
     rows, scales = quantize_rows_int8(F.normalize(torch.randn(N, D, generator=g, device=dev), dim=-1))
     qi, qs = quantize_rows_int8(F.normalize(torch.randn(B, D, generator=g, device=dev), dim=-1))
-    n0 = stream_scores_int8.launches
-    got = stream_scores_int8(rows, qi, qs, scales, N - 5)
-    torch.cuda.synchronize()
-    assert stream_scores_int8.launches == n0 + len(query_chunks(B, D)) == n0 + 4
-    assert torch.equal(got, scores_int8_reference(rows, qi, qs, scales, N - 5))
+    pen = torch.zeros(N, device=dev)
+    pen[torch.randint(0, N, (1000,), generator=g, device=dev)] = NEG_INF
+    for p in (None, pen):
+        n0 = stream_scores_int8.launches
+        got = stream_scores_int8(rows, qi, qs, scales, N - 5, p)
+        torch.cuda.synchronize()
+        assert stream_scores_int8.launches == n0 + 1
+        assert torch.equal(got, scores_int8_reference(rows, qi, qs, scales, N - 5, p))
 
 
 def _sketches(dev, n, da, seed):
@@ -500,7 +512,10 @@ def test_qkv_packed_core_backward_is_b5_on_the_views(dev, B, S, H, causal):
     assert (dqkv.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
 
 
-@pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 130, 4, False)])
+@pytest.mark.parametrize(
+    "B,S,H,causal",
+    [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 130, 4, False), (2, 17, 4, True), (1, 320, 2, False)],
+)
 def test_qkv_attention_kernel_matches_plain(dev, B, S, H, causal):
     """B8: the projection in the kernel's own mma tiles, then B7's attention."""
     g = torch.Generator(device=dev).manual_seed(B * S + 7)
@@ -517,6 +532,32 @@ def test_qkv_attention_kernel_matches_plain(dev, B, S, H, causal):
     _close_to_plain(got, want, want32)
 
 
+@pytest.mark.parametrize("B,S,H,causal", [(8, 257, 16, False), (32, 77, 12, True), (2, 1, 2, True), (3, 300, 4, False)])
+def test_qkv_attention_is_b7_on_its_projection(dev, B, S, H, causal):
+    """B8's attention phase is B7's body (attention_tc.cuh) on the qkv its
+    projection phase writes: bitwise B7 on the probe's qkv, at the vision
+    and the text shape and at ragged S; the probe's qkv is bf16(x w^T) + b
+    within the round-off of two bf16 roundings and of two f32 sums of D
+    products in different orders (D * 2^-24 * sum |x w| each)."""
+    g = torch.Generator(device=dev).manual_seed(B * S + 9)
+    D = H * 64
+    x = torch.randn(B, S, D, generator=g, device=dev).bfloat16()
+    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).bfloat16()
+    b = (torch.randn(3 * D, generator=g, device=dev) * 0.1).bfloat16()
+    n0 = attn.fused_qkv_attention.launches
+    qkv = attn.qkv_attention_probe(x, w, b, H)
+    got = attn.fused_qkv_attention(x, w, b, H, causal, 0.125)
+    torch.cuda.synchronize()
+    assert attn.fused_qkv_attention.launches == n0 + 1  # the probe counts no launch
+    assert qkv.shape == (B, S, 3 * D) and qkv.dtype == torch.bfloat16
+    assert torch.equal(got, attn.fused_attention_qkv_packed(qkv, H, causal, 0.125))
+    acc = torch.matmul(x.float(), w.float().t())
+    tol = 2.0**-7 * (2 * acc.abs() + b.float().abs()) + 2 * D * 2.0**-24 * torch.matmul(x.float().abs(), w.float().abs().t())
+    err = (qkv.float() - (acc.bfloat16() + b).float()).abs()
+    assert bool((err <= tol).all())
+    assert (err == 0).float().mean().item() > 0.99
+
+
 def test_qkv_kernels_reject_what_they_cannot_take(dev):
     x = torch.zeros(2, 8, 128, device=dev, dtype=torch.bfloat16)
     w = torch.zeros(384, 128, device=dev, dtype=torch.bfloat16)
@@ -529,6 +570,10 @@ def test_qkv_kernels_reject_what_they_cannot_take(dev):
         attn.fused_qkv_attention(x.transpose(0, 1).contiguous().transpose(0, 1), w, b, 2)
     with pytest.raises(ValueError, match="shape"):
         attn.fused_qkv_attention(x, w[:256], b, 2)
+    with pytest.raises(NotImplementedError, match="S=321"):
+        attn.fused_qkv_attention(torch.zeros(1, 321, 128, device=dev, dtype=torch.bfloat16), w, b, 2)
+    with pytest.raises(ValueError, match="card only"):
+        attn.qkv_attention_probe(x.cpu(), w.cpu(), b.cpu(), 2)
     with pytest.raises(ValueError, match="bf16"):
         attn.fused_attention_qkv_packed(torch.zeros(1, 8, 384, device=dev), 2)
     with pytest.raises(NotImplementedError, match="head dim"):

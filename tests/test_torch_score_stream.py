@@ -131,18 +131,19 @@ def test_no_route_for_other_devices():
         stream_scores_int8(t8, t8, f, f, 4)
 
 
-@pytest.mark.parametrize("b,d", [(1024, 768), (1, 768), (296, 768), (297, 768), (5000, 512), (33, 12)])
-def test_query_chunk_plan(b, d):
-    """The launches of one wrapper call: chunks of at most floor(232448 / D)
-    queries (the kernel stages a chunk in shared memory), multiples of 8 but
-    the last, covering the batch in order."""
-    from image_search_tpu_torch.ops.score_stream import SMEM_BYTES, query_chunks
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 296, 1024, 5000])
+def test_launch_plan(b):
+    """One launch per call at every batch: BM follows B (16 up to 16
+    queries, padded queries never stored; 64 up to 64; 128 above), the grid
+    covers every query and every row of a ragged N in tiles of BM x 128,
+    whatever D."""
+    from image_search_tpu_torch.ops.score_stream import BN, score_plan
 
-    chunks = query_chunks(b, d)
-    assert SMEM_BYTES == 232448
-    assert chunks[0][0] == 0 and chunks[-1][1] == b
-    assert all(hi0 == lo1 for (_, hi0), (lo1, _) in zip(chunks, chunks[1:]))
-    assert all(0 < hi - lo <= SMEM_BYTES // d for lo, hi in chunks)
-    assert all((hi - lo) % 8 == 0 for lo, hi in chunks[:-1])
-    if (b, d) == (1024, 768):
-        assert chunks == [(0, 296), (296, 592), (592, 888), (888, 1024)]
+    want_bm = 16 if b <= 16 else 64 if b <= 64 else 128
+    for n, d in ((100_003, 768), (128, 768), (1, 12)):
+        plan = score_plan(b, n, d)
+        bm, (m_tiles, n_tiles) = plan["bm"], plan["grid"]
+        assert bm == want_bm and plan["bn"] == BN == 128
+        assert (m_tiles - 1) * bm < b <= m_tiles * bm
+        assert (n_tiles - 1) * BN < n <= n_tiles * BN
+    assert score_plan(b, 100_003, 768)["grid"][1] == 782
