@@ -19,16 +19,18 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    duplicate scan's 1024 (B2, one launch per call; beside it torch._int_mm
    with the epilogue as torch ops), the block-pair mask at 262,144 x 262,144
    rows, the certified route's one call, and at 16,384 x 262,144 from row
-   block 512 (B3), values at 65,536 x 1,048,576 (B4); attention over one
+   block 512 (B3), values at 65,536 x 1,048,576 (B4), both on the sketch
+   slab padded to 80 columns as the scan builds it; attention over one
    packed qkv (B7, also bitwise against B1p) and the qkv projection fused
    into attention (B8, also bitwise against B7 on the qkv its projection
    phase writes, and that phase timed alone) at the B1 shapes, and the
    fused LayerNorm -> matmul (B9) at the vision tower's 41,120 rows, ln1 ->
-   qkv and ln2 -> fc. The
-   attention kernels (B1, B1p, B5, B6, B7, B8), their plain versions and SDPA
-   are timed by replaying a CUDA graph of 10 calls (device time: a text-size
-   kernel is shorter than one launch from Python) and print their TFLOP/s
-   and share of the bound; the others by CUDA events around each call;
+   qkv and ln2 -> fc, beside F.layer_norm + F.linear and F.linear alone. The
+   attention kernels (B1, B1p, B5, B6, B7, B8) and B9, their plain versions
+   and the PyTorch calls are timed by replaying a CUDA graph of 10 calls
+   (device time: a text-size kernel is shorter than one launch from Python)
+   and print their TFLOP/s and share of the bound; the others by CUDA events
+   around each call;
 4. ViT-L/14 at full width (seeded random bf16 weights): preprocess + vision
    tower at B=160 and the text tower at B=8 through the attention kernel,
    checked against the same weights' f32 forward on the CPU, and img/s;
@@ -461,7 +463,9 @@ def check_qkv_attention(torch, gen, dev, B, S, H, causal):
 
 def check_ln_matmul(torch, gen, dev, M, K, N):
     """B9 against its plain version at the vision tower's rows (B=160 x 257),
-    timed beside F.layer_norm + F.linear on the same inputs."""
+    timed (CUDA-graph replay) beside F.layer_norm + F.linear on the same
+    inputs, and beside F.linear alone: cuBLAS's GEMM, so that the GEMM's gap
+    and the LayerNorm's share show apart."""
     from image_search_tpu_torch.ops.ln_matmul import ln_matmul, ln_matmul_reference
 
     F = torch.nn.functional
@@ -482,23 +486,24 @@ def check_ln_matmul(torch, gen, dev, M, K, N):
     del want32
     check(rel <= LN_MM_MAX_REL, f"B9 {shape}: max abs err {err} = {rel} x max|plain| > {LN_MM_MAX_REL}")
     check(cos >= LN_MM_MIN_COS, f"B9 {shape}: min row cosine {cos} < {LN_MM_MIN_COS}")
-    k_ms, p_ms = ab_ms(torch, lambda: ln_matmul_reference(x, ls, lb, w, b), kernel, iters=10)
+    k_ms, p_ms = ab_ms(torch, lambda: ln_matmul_reference(x, ls, lb, w, b), kernel, iters=5, timer=graph_ms)
     ls16, lb16 = ls.to(torch.bfloat16), lb.to(torch.bfloat16)
-    lib_ms = statistics.median(cuda_ms(torch, lambda: F.linear(F.layer_norm(x, (K,), ls16, lb16, 1e-5), w, b),
-                                       iters=10))
+    lib_ms = statistics.median(graph_ms(torch, lambda: F.linear(F.layer_norm(x, (K,), ls16, lb16, 1e-5), w, b),
+                                        iters=5))
+    lin_ms = statistics.median(graph_ms(torch, lambda: F.linear(x, w, b), iters=5))
     b_ms, b_by = bound((M * K + N * K + M * N + N) * 2 + 8 * K, 2 * M * K * N, BF16_FLOP_PER_S)
     print(f"B9 ln_matmul {shape}: max_abs_err={err} (x max|plain|: {rel}) min_row_cos_vs_f32={cos} "
           f"kernel_ms={k_ms} ({2 * M * K * N / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s) plain_ms={p_ms} "
-          f"layer_norm+linear_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+          f"layer_norm+linear_ms={lib_ms} linear_ms={lin_ms} bound_ms={b_ms} ({b_by})"
           + ("  (kernel SLOWER than plain)" if k_ms > p_ms else ""))
     return dict(max_abs_err=err, max_rel_err=rel, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, shape=shape)
+                linear_ms=lin_ms, bound_ms=b_ms, bound_by=b_by, shape=shape)
 
 
 def phase_kernels(torch, gen, dev):
     from image_search_tpu_torch.ops.attention import fused_qkv_attention
     from image_search_tpu_torch.ops.blockmax import (
-        blockpair_mask, blockpair_mask_reference, blockpair_values, blockpair_values_reference,
+        blockpair_mask, blockpair_mask_reference, blockpair_values, blockpair_values_reference, kernel_depth,
     )
     from image_search_tpu_torch.ops.score_stream import (
         NEG_INF, quantize_rows_int8, scores_int8_reference, score_plan, stream_scores_int8,
@@ -586,8 +591,11 @@ def phase_kernels(torch, gen, dev):
     # B3 and B4 on augmented sketches (64 dims + the residual norm): B3 at the
     # certified route's one call (all 262,144 rows against themselves), and
     # again on a row slab with a nonzero row_block0; B4 at the approximate
-    # route's first call
+    # route's first call. The kernels take the slab as the scan builds it,
+    # padded with zero columns to 80 (dupscan._prep_sketch); the plain
+    # versions the 65-wide operand. The bound counts d_a = 65.
     da = 65
+    dp = kernel_depth(da)
     for name, R, N, r0 in (
         ("mask", CERT_ROWS, CERT_ROWS, 0),
         ("mask", 16_384, CERT_ROWS, 65_536),
@@ -595,24 +603,26 @@ def phase_kernels(torch, gen, dev):
     ):
         sk = (torch.randn(N, da, generator=gen, device=dev) / da**0.5).to(torch.bfloat16)
         s_rows, rb0 = sk[r0 : r0 + R], r0 // 128
+        skp = F.pad(sk, (0, dp - da))
+        p_rows = skp[r0 : r0 + R]
         pairs = upper_block_pairs(R, N, rb0)
         ops = pairs * 2 * 128 * 128 * da
         if name == "mask":
             thr = threshold_between_maxima(torch, blockpair_values_reference(s_rows, sk, rb0), 0.5)
             n0 = blockpair_mask.launches
-            got = blockpair_mask(s_rows, sk, thr, rb0)
+            got = blockpair_mask(p_rows, skp, thr, rb0)
             n_launch = blockpair_mask.launches - n0
             want = blockpair_mask_reference(s_rows, sk, thr, rb0)
             check(torch.equal(got, want), f"blockpair_mask R={R} N={N}: words not bitwise equal")
             err = 0.0
             bits = int(sum(bin(w & 0xFFFFFFFF).count("1") for w in want.flatten().tolist()))
             detail = f"thr={thr} bits_set={bits} bitwise_equal=True"
-            kernel = lambda: blockpair_mask(s_rows, sk, thr, rb0)
+            kernel = lambda: blockpair_mask(p_rows, skp, thr, rb0)
             plain = lambda: blockpair_mask_reference(s_rows, sk, thr, rb0)
             out_bytes = 4 * (R // 128) * (N // 4096)
         else:
             n0 = blockpair_values.launches
-            got = blockpair_values(s_rows, sk, rb0)
+            got = blockpair_values(p_rows, skp, rb0)
             n_launch = blockpair_values.launches - n0
             want = blockpair_values_reference(s_rows, sk, rb0)
             fin = torch.isfinite(want)
@@ -620,7 +630,7 @@ def phase_kernels(torch, gen, dev):
             err = (got[fin] - want[fin]).abs().max().item()
             check(err <= VALUES_MAX_ABS, f"blockpair_values R={R} N={N}: max abs err {err} > {VALUES_MAX_ABS}")
             detail = f"max_abs_err={err}"
-            kernel = lambda: blockpair_values(s_rows, sk, rb0)
+            kernel = lambda: blockpair_values(p_rows, skp, rb0)
             plain = lambda: blockpair_values_reference(s_rows, sk, rb0)
             out_bytes = 4 * (R // 128) * (N // 128)
         check(n_launch == 1, f"blockpair_{name}: {n_launch} launches")
@@ -632,10 +642,11 @@ def phase_kernels(torch, gen, dev):
         )
         print(
             f"B{3 if name == 'mask' else 4} blockpair_{name} R={R} N={N} d_a={da} row_block0={rb0} "
-            f"block_pairs={pairs}: {detail} kernel_ms={k_ms} ({ops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s) "
+            f"block_pairs={pairs}: {detail} kernel_ms={k_ms} ({ops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s at d_a={da}, "
+            f"{ops * dp / da / (k_ms * 1e-3) / 1e12:.1f} at the padded {dp}) "
             f"plain_ms={p_ms} bound_ms={b_ms} ({b_by})" + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
         )
-        del sk, s_rows, got, want
+        del sk, s_rows, skp, p_rows, got, want
         torch.cuda.empty_cache()
     return res
 

@@ -9,62 +9,85 @@
 //   acc[m, n] = sum_k y[m, k] * w[n, k] in f32 (bf16 products are exact);
 //   out = bf16(bf16(acc) + b[n]): the bias is added in the output dtype.
 // x [M, K] and w [N, K] (nn.Linear's layout) are bf16 with contiguous rows,
-// ls and lb f32 [K], b bf16 [N]; K and N multiples of 8. Rows at or past M
-// and columns at or past N are masked.
-//
-// Design: one CTA of 8 warps per 128 rows x 4 consecutive 128-column tiles;
-// grid.x runs over the column groups so that the CTAs in flight share their
-// x rows in L2. The CTA first computes its 128 rows' mean and rstd from
-// global memory (a warp per row, 16-byte loads, two passes), once for its 4
-// tiles. Then, for each tile in turn, the K loop, in 32-deep tiles, double
-// buffered in shared memory: w tiles arrive by cp.async; x tiles are loaded
-// into registers one tile ahead, normalised there in f32, rounded to bf16
-// and stored to shared memory while the tensor cores work on the current
-// tile. Warps are laid out 2 x 4, each owning 64 x 32 outputs: 4 x 4 tiles of
-// mma.sync.m16n8k16 bf16 with f32 accumulators, fragments read with
-// ldmatrix from rows padded to 40 elements (conflict-free).
+// ls and lb f32 [K] (passed stacked, [2, K]), b bf16 [N]; K and N multiples
+// of 8. Rows at or past M and columns at or past N are masked.
 //
 // What bounds it: operations. 2*M*K*N FLOP over (M*K + N*K + M*N)*2 bytes:
 // at M = 41,120 (ViT-L/14, B = 160), K = 1024 and N = 3072 or 4096, ~700
-// FLOP per byte, far above the card's ~295. The x rows are re-read for the
-// statistics by every CTA of their row block (from L2), and from L2 again by
-// every tile; 128 x 128 tiles of mma.sync run at a fraction of the tensor
-// cores' rate. wgmma, TMA and larger tiles are later work.
+// FLOP per byte, far above the card's ~295. So the design is a Hopper GEMM
+// (wgmma fed by TMA) with the LayerNorm applied to the A operand on its way
+// from shared memory into the tensor cores; y never reaches device memory.
+//
+// Two launches per call, on one stream:
+// 1. ln_stats_kernel: each row's mean and rstd, once per row (a warp a row,
+//    the row's first 1024 values held in registers so the two passes read x
+//    once), into a [2, M] f32 scratch the wrapper allocates. It reads M*K*2
+//    bytes (84 MB at the vision shape, ~25 us at 3.35 TB/s, about a tenth of
+//    the GEMM's bound). The earlier design recomputed the statistics in every
+//    CTA of a row block, N/512 times a row.
+// 2. ln_matmul_kernel: a persistent grid (one CTA an SM) walks 128 x 256
+//    output tiles, row block major, so the CTAs in flight share their x rows
+//    and all of w (6-8 MB) stays in L2 while x comes from HBM about once.
+//    A CTA is 2 consumer warpgroups and 1 producer warpgroup, of which one
+//    thread issues the copies (setmaxnreg hands the producer's registers to
+//    the consumers). It keeps a 3-stage ring full by TMA: per 64-deep k step,
+//    x [128 x 64] and w [256 x 64] bf16 with 128-byte swizzle and the step's
+//    64 values of ls and lb, ~49 KB a stage, completing on the stage's full
+//    mbarrier. TMA zero-fills rows past M and columns past K (ls = lb = 0
+//    there, so y is 0 past K).
+//    Each consumer warpgroup owns 64 rows x 256 columns, 128 f32 accumulators
+//    a thread. Per k16 step each warp reads its 16 rows of x with ldmatrix
+//    (the swizzle undone in the addresses), normalises them in f32 with its
+//    rows' mean / rstd and the columns' ls / lb, rounds to bf16 and holds
+//    them as the A fragment (mma.m16n8k16's layout, which is wgmma's for A
+//    in registers), then issues one wgmma.m64n256k16 with A from registers
+//    and B (w) from shared memory by descriptor, as its own group. The A
+//    fragments alternate between two register sets, and each step waits only
+//    for the group before it, so a step is normalised while the tensor cores
+//    run the one before; a stage is released (its empty mbarrier, one
+//    arrival per consumer warp) once its last group has completed. Each x
+//    element is normalised N / 256 times (12 or 16), against 24 or 32 before.
+//    The epilogue rounds, adds the bias in bf16 and writes the warpgroup's
+//    64 x 256 tile into shared memory (four 128-byte-swizzled 64 x 64 boxes:
+//    conflict-free), and one thread stores it by TMA (which clips rows past
+//    M and columns past N) while the warpgroup goes on to its next tile.
+//
+// Choices measured on an NVIDIA H100 80GB HBM3 at 700 W (M = 41,120,
+// K = 1024):
+// - ptxas keeps the consumers at 168 registers (the launch's 384 threads
+//   cap them, and setmaxnreg does not raise what it allocates, though the
+//   kernel ran slower without it), so a register set of A fragments per
+//   k16 step fits, and a set per 64-deep stage (4 wgmmas a group)
+//   serialised the wgmmas and spilled.
+// - The LN in registers (this form) beat normalising x in place in shared
+//   memory and reading both operands by descriptor, whether the consumers or
+//   the producer warpgroup's three idle warps did the normalising.
+// - Without the normalisation (raw x as A) the same loop ran faster: the
+//   LN's cost inside the GEMM is what separates it from cuBLAS's rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kTilesN = 4;  // column tiles per CTA, sharing one pass of row statistics
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kBK + 8;  // smem row stride (bf16): 80 bytes, conflict-free ldmatrix
-constexpr int kVecs = kBM * kBK / 8 / kThreads;  // 16-byte vectors per thread per tile: 2
+constexpr int kBM = 128, kBN = 256, kBK = 64;
+constexpr int kStages = 3;
+constexpr int kConsumerWarps = 8;  // two warpgroups of 64 rows each
+constexpr int kThreads = (kConsumerWarps + 4) * 32;  // + the producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
+constexpr int kXBytes = kBM * kBK * 2;                 // 16 KB
+constexpr int kWBytes = kBN * kBK * 2;                 // 32 KB
+constexpr int kLsbBytes = 2 * kBK * 4;                 // ls and lb of the step
+constexpr int kTxBytes = kXBytes + kWBytes + kLsbBytes;
+constexpr int kStageBytes = (kTxBytes + 1023) / 1024 * 1024;  // swizzle atoms stay 1024-aligned
+constexpr int kOutBytes = 64 * kBN * 2;  // a consumer warpgroup's output tile, staged for the TMA store
+constexpr size_t kSmemBytes = 1024 + (size_t)kStages * kStageBytes + 2 * (size_t)kOutBytes + 2 * kStages * 8;
+constexpr int kStatsRows = 8;  // rows per block of the statistics pass (a warp a row)
+constexpr int kHeldChunks = 4;  // 16-byte chunks a lane holds: rows up to 1024 are read once
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -72,197 +95,254 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-ln_matmul_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ls,
-                 const float* __restrict__ lb, const __nv_bfloat16* __restrict__ w,
-                 const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                 int M, int N, int K, float eps) {
-  __shared__ __align__(16) __nv_bfloat16 sA[2][kBM * kLds];
-  __shared__ __align__(16) __nv_bfloat16 sB[2][kBN * kLds];
-  __shared__ float s_mean[kBM], s_rstd[kBM];
-
-  const int m0 = blockIdx.y * kBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // 1. each row's statistics, a warp per row, two passes over global memory
-  for (int r = warp; r < kBM; r += kWarps) {
-    const int row = m0 + r;
-    float mean = 0.f, rstd = 0.f;
-    if (row < M) {
-      const __nv_bfloat16* xr = x + (size_t)row * K;
-      float s = 0.f;
-      for (int k = lane * 8; k < K; k += 256) {
-        const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+__device__ __forceinline__ float sum8(const uint4& u) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h[i]);
-          s += f.x;
-          s += f.y;
-        }
-      }
-      mean = warp_sum(s) / (float)K;
-      float s2 = 0.f;
-      for (int k = lane * 8; k < K; k += 256) {
-        const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    s += f.x;
+    s += f.y;
+  }
+  return s;
+}
+
+__device__ __forceinline__ float sq8(const uint4& u, float mean) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h[i]);
-          const float d0 = f.x - mean, d1 = f.y - mean;
-          s2 += d0 * d0;
-          s2 += d1 * d1;
-        }
-      }
-      rstd = 1.0f / sqrtf(warp_sum(s2) / (float)K + eps);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    const float d0 = f.x - mean, d1 = f.y - mean;
+    s += d0 * d0;
+    s += d1 * d1;
+  }
+  return s;
+}
+
+// stats[0][m] = mean, stats[1][m] = rstd of row m; one warp a row.
+__global__ void __launch_bounds__(kStatsRows * 32)
+ln_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int M, int K, float eps) {
+  const int row = blockIdx.x * kStatsRows + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+  const int chunks = K / 8;
+  uint4 held[kHeldChunks];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kHeldChunks; ++i) {
+    const int c = lane + 32 * i;
+    held[i] = c < chunks ? xr[c] : make_uint4(0, 0, 0, 0);
+    s += sum8(held[i]);
+  }
+  for (int c = lane + 32 * kHeldChunks; c < chunks; c += 32) s += sum8(xr[c]);
+  const float mean = warp_sum(s) / (float)K;
+  float s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kHeldChunks; ++i)
+    if (lane + 32 * i < chunks) s2 += sq8(held[i], mean);
+  for (int c = lane + 32 * kHeldChunks; c < chunks; c += 32) s2 += sq8(xr[c], mean);
+  const float rstd = 1.0f / sqrtf(warp_sum(s2) / (float)K + eps);
+  if (lane == 0) {
+    stats[row] = mean;
+    stats[M + row] = rstd;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Two bf16 of x normalised with (mean, rstd) and the columns' (ls, lb), in
+// the reference's order of rounding, packed as a bf16 pair.
+__device__ __forceinline__ uint32_t norm2(uint32_t xv, float mean, float rstd, float2 g, float2 h) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv));
+  const float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f.x, mean), rstd), g.x), h.x);
+  const float y1 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f.y, mean), rstd), g.y), h.y);
+  const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
+  return *reinterpret_cast<const uint32_t*>(&y);
+}
+
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ unsigned char* x(int st) const { return base + st * kStageBytes; }
+  __device__ unsigned char* w(int st) const { return x(st) + kXBytes; }
+  __device__ float* lsb(int st) const { return reinterpret_cast<float*>(w(st) + kWBytes); }
+  __device__ unsigned char* out(int wg) const { return base + kStages * kStageBytes + wg * kOutBytes; }
+};
+
+// A consumer warp's A fragment for k16 step kk of the stage's x tile: its 16
+// rows read with ldmatrix (xs: the address of the row this lane addresses,
+// 128-byte swizzled), normalised, rounded to bf16 pairs.
+__device__ __forceinline__ void norm_fragment(uint32_t (&a)[4], uint32_t xs, int xrow, const float* lsb, int kk,
+                                              float mean0, float rstd0, float mean1, float rstd1) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  uint32_t xr[4];
+  ldmatrix_x4(xr, xs + (((kk * 2 + (lane >> 4)) ^ (xrow & 7)) << 4));
+  const int c0 = kk * 16 + 2 * t, c1 = c0 + 8;
+  const float2 g0 = *reinterpret_cast<const float2*>(lsb + c0), g1 = *reinterpret_cast<const float2*>(lsb + c1);
+  const float2 h0 = *reinterpret_cast<const float2*>(lsb + kBK + c0);
+  const float2 h1 = *reinterpret_cast<const float2*>(lsb + kBK + c1);
+  a[0] = norm2(xr[0], mean0, rstd0, g0, h0);
+  a[1] = norm2(xr[1], mean1, rstd1, g0, h0);
+  a[2] = norm2(xr[2], mean0, rstd0, g1, h1);
+  a[3] = norm2(xr[3], mean1, rstd1, g1, h1);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ln_matmul_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                 const __grid_constant__ CUtensorMap tmlsb, const __grid_constant__ CUtensorMap tmo,
+                 const float* __restrict__ stats, const bf16* __restrict__ bias, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Ring ring;
+  ring.base = smem_raw + ((1024 - sm90::smem_u32(smem_raw) % 1024) % 1024);
+  ring.full = reinterpret_cast<uint64_t*>(ring.out(2));
+  ring.empty = ring.full + kStages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(&ring.full[st], 1);
+      sm90::mbar_init(&ring.empty[st], kConsumerWarps);
     }
-    if (lane == 0) {
-      s_mean[r] = mean;
-      s_rstd[r] = rstd;
-    }
+    sm90::mbar_init_fence();
   }
   __syncthreads();
 
-  // each thread loads the same two (row, 8-column) slots of every x and w tile
-  int ld_r[kVecs], ld_c = (threadIdx.x % 4) * 8;
-  float mu[kVecs], rs[kVecs];
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    ld_r[i] = threadIdx.x / 4 + i * (kThreads / 4);
-    mu[i] = s_mean[ld_r[i]];
-    rs[i] = s_rstd[ld_r[i]];
-  }
-  uint4 xa[kVecs];
+  const int tiles_n = (N + kBN - 1) / kBN, tiles = ((M + kBM - 1) / kBM) * tiles_n;
   const int KT = (K + kBK - 1) / kBK;
 
-  for (int tile = 0; tile < kTilesN; ++tile) {
-    const int n0 = (blockIdx.x * kTilesN + tile) * kBN;
-    if (n0 >= N) break;
-    auto load_w = [&](int kt, int buf) {
-      const int k = kt * kBK + ld_c;
-#pragma unroll
-      for (int i = 0; i < kVecs; ++i) {
-        const int n = n0 + ld_r[i];
-        const bool ok = n < N && k < K;
-        cp_async16(&sB[buf][ld_r[i] * kLds + ld_c], ok ? (const void*)(w + (size_t)n * K + k) : (const void*)w, ok);
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-    };
-    auto load_x = [&](int kt) {
-      const int k = kt * kBK + ld_c;
-#pragma unroll
-      for (int i = 0; i < kVecs; ++i) {
-        const int m = m0 + ld_r[i];
-        xa[i] = (m < M && k < K) ? *reinterpret_cast<const uint4*>(x + (size_t)m * K + k) : make_uint4(0, 0, 0, 0);
-      }
-    };
-    auto store_x = [&](int kt, int buf) {
-      const int k = kt * kBK + ld_c;
-      float g[8], h[8];
-      if (k < K) {
-        const float4 g0 = *reinterpret_cast<const float4*>(ls + k), g1 = *reinterpret_cast<const float4*>(ls + k + 4);
-        const float4 h0 = *reinterpret_cast<const float4*>(lb + k), h1 = *reinterpret_cast<const float4*>(lb + k + 4);
-        g[0] = g0.x; g[1] = g0.y; g[2] = g0.z; g[3] = g0.w; g[4] = g1.x; g[5] = g1.y; g[6] = g1.z; g[7] = g1.w;
-        h[0] = h0.x; h[1] = h0.y; h[2] = h0.z; h[3] = h0.w; h[4] = h1.x; h[5] = h1.y; h[6] = h1.z; h[7] = h1.w;
-      }
-#pragma unroll
-      for (int i = 0; i < kVecs; ++i) {
-        uint4 y = make_uint4(0, 0, 0, 0);  // columns past K stay 0
-        if (k < K) {
-          const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xa[i]);
-          __nv_bfloat162* yh = reinterpret_cast<__nv_bfloat162*>(&y);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = __bfloat1622float2(xh[j]);
-            const float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f.x, mu[i]), rs[i]), g[2 * j]), h[2 * j]);
-            const float y1 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f.y, mu[i]), rs[i]), g[2 * j + 1]), h[2 * j + 1]);
-            yh[j] = __floats2bfloat162_rn(y0, y1);
-          }
-        }
-        *reinterpret_cast<uint4*>(&sA[buf][ld_r[i] * kLds + ld_c]) = y;
-      }
-    };
-
-    const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-    float acc[4][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    load_w(0, 0);
-    load_x(0);
-    store_x(0, 0);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-
-    for (int kt = 0; kt < KT; ++kt) {
-      const int cur = kt & 1;
-      const bool more = kt + 1 < KT;
-      if (more) {
-        load_w(kt + 1, cur ^ 1);
-        load_x(kt + 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        uint32_t a[4][4], b[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-          ldmatrix_x4(a[mi], &sA[cur][(wm + mi * 16 + lane % 16) * kLds + kk + (lane / 16) * 8]);
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj)
-          ldmatrix_x4(b[nj], &sB[cur][(wn + nj * 16 + (lane / 16) * 8 + lane % 8) * kLds + kk + ((lane / 8) % 2) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2], b[ni / 2][(ni % 2) * 2 + 1]);
-      }
-      if (more) store_x(kt + 1, cur ^ 1);
-      asm volatile("cp.async.wait_group 0;\n" ::);
-      __syncthreads();
-    }
-
-    // epilogue: bf16(acc), then + b in bf16
-    const int g = lane / 4, t = lane % 4;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn + ni * 8 + 2 * t;
-      if (col >= N) continue;
-      const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = m0 + wm + mi * 16 + g + half * 8;
-          if (row >= M) continue;
-          const float v0 = __bfloat162float(__float2bfloat16(acc[mi][ni][2 * half])) + bb.x;
-          const float v1 = __bfloat162float(__float2bfloat16(acc[mi][ni][2 * half + 1])) + bb.y;
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) = __floats2bfloat162_rn(v0, v1);
+  if (warp >= kConsumerWarps) {  // producer warpgroup: one thread feeds the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kConsumerWarps && lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kBN;
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int st = it % kStages;
+          sm90::mbar_wait(&ring.empty[st], ((it / kStages) & 1) ^ 1);
+          sm90::mbar_expect_tx(&ring.full[st], kTxBytes);
+          sm90::tma_load_2d(ring.x(st), &tmx, kt * kBK, m0, &ring.full[st]);
+          sm90::tma_load_2d(ring.w(st), &tmw, kt * kBK, n0, &ring.full[st]);
+          sm90::tma_load_2d(ring.lsb(st), &tmlsb, kt * kBK, 0, &ring.full[st]);
         }
       }
     }
-  }  // the K loop's last __syncthreads frees both buffers for the next tile
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows wg * 64 .. + 63 of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp / 4, g = lane >> 2, t = lane & 3;
+  const int xrow = wg * 64 + (warp & 3) * 16 + (lane & 15);  // the row this lane addresses for ldmatrix
+  const int r0 = wg * 64 + (warp & 3) * 16 + g;              // the rows of its accumulators: r0, r0 + 8
+  float acc[128];
+  uint32_t a[2][4];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kBN;
+    const int ra = m0 + r0, rb = ra + 8;
+    const float mean0 = ra < M ? stats[ra] : 0.f, rstd0 = ra < M ? stats[M + ra] : 0.f;
+    const float mean1 = rb < M ? stats[rb] : 0.f, rstd1 = rb < M ? stats[M + rb] : 0.f;
+    int prev = 0;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int st = it % kStages;
+      sm90::mbar_wait(&ring.full[st], (it / kStages) & 1);
+      const uint32_t xs = sm90::smem_u32(ring.x(st)) + xrow * 128;
+      // one wgmma group a k16 step; A alternates between two register sets,
+      // so step kk + 1 is normalised while the tensor cores run step kk
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        norm_fragment(a[kk & 1], xs, xrow, ring.lsb(st), kk, mean0, rstd0, mean1, rstd1);
+        sm90::wgmma_fence();
+        sm90::wgmma_m64n256k16_rs(acc, a[kk & 1], sm90::smem_desc(ring.w(st) + kk * 32, sm90::kSw128, 1024),
+                                  kt > 0 || kk > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        // the previous stage's last group is done: its slot is free
+        if (kk == 0 && kt > 0 && lane == 0) sm90::mbar_arrive(&ring.empty[prev]);
+      }
+      prev = st;
+    }
+    sm90::wgmma_wait<0>();
+    if (lane == 0) sm90::mbar_arrive(&ring.empty[prev]);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) sm90::fence_operand(acc[i]);
+
+    // epilogue: bf16(acc), then + b in bf16, into the warpgroup's staging
+    // tile (four 64 x 64 boxes, 128-byte swizzled: conflict-free writes),
+    // then one TMA store a box, which clips rows past M and columns past N
+    const bool issuer = (warp & 3) == 0 && lane == 0;
+    unsigned char* stage_out = ring.out(wg);
+    if (issuer) sm90::bulk_wait_read<0>();  // the previous tile's store has read the buffer
+    sm90::named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = n0 + j * 8 + 2 * t;
+      const float2 bb = col < N ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col))
+                                : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = (warp & 3) * 16 + g + half * 8;  // row within the warpgroup's 64
+        const float v0 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * half])) + bb.x;
+        const float v1 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * half + 1])) + bb.y;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(stage_out + (j / 8) * 8192 + r * 128 + (((j % 8) ^ (r & 7)) << 4) +
+                                           t * 4) = v;
+      }
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(1 + wg, 128);
+    if (issuer && m0 + wg * 64 < M) {
+      for (int q = 0; q < 4 && n0 + q * 64 < N; ++q)
+        sm90::tma_store_2d(&tmo, stage_out + q * 8192, n0 + q * 64, m0 + wg * 64);
+      sm90::bulk_commit();
+    }
+  }
+  if ((warp & 3) == 0 && lane == 0) sm90::bulk_wait<0>();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K], w [N, K], b [N], out [M, N] bf16 and ls, lb [K] f32, contiguous
-// and 16-byte aligned on the device; K % 8 == 0, N % 8 == 0. Launches on
-// `stream`; returns cudaGetLastError() (0 on success).
-int isx_ln_matmul(const void* x, const void* ls, const void* lb, const void* w, const void* b,
-                  void* out, int M, int N, int K, float eps, void* stream) {
+// x [M, K], w [N, K], b [N], out [M, N] bf16, lsb [2, K] f32 (ls then lb)
+// and stats [2, M] f32 scratch, contiguous and 16-byte aligned on the
+// device; K % 8 == 0, N % 8 == 0. Launches the statistics pass and the GEMM
+// on `stream`; returns cudaGetLastError() (0 on success) or
+// cudaErrorInvalidValue for what it cannot take.
+int isx_ln_matmul(const void* x, const void* lsb, const void* w, const void* b, void* out, void* stats, int M,
+                  int N, int K, float eps, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN * kTilesN - 1) / (kBN * kTilesN), (M + kBM - 1) / kBM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  ln_matmul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ls),
-      static_cast<const float*>(lb), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out), M, N, K, eps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap tmx, tmw, tmlsb, tmo;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, w_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t l_dims[2] = {(cuuint64_t)K, 2};
+  const cuuint64_t bf_stride[1] = {(cuuint64_t)K * 2}, f_stride[1] = {(cuuint64_t)K * 4};
+  const cuuint64_t o_dims[2] = {(cuuint64_t)N, (cuuint64_t)M}, o_stride[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t x_box[2] = {kBK, kBM}, w_box[2] = {kBK, kBN}, l_box[2] = {kBK, 2}, o_box[2] = {64, 64};
+  if (!sm90::tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, bf_stride, x_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::tensor_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, w_dims, bf_stride, w_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::tensor_map(&tmlsb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, lsb, l_dims, f_stride, l_box,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !sm90::tensor_map(&tmo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, o_dims, o_stride, o_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  ln_stats_kernel<<<(M + kStatsRows - 1) / kStatsRows, kStatsRows * 32, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<float*>(stats), M, K, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ln_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  const int grid = (int)(tiles < sm90::sm_count() ? tiles : sm90::sm_count());
+  ln_matmul_kernel<<<grid, kThreads, kSmemBytes, st>>>(tmx, tmw, tmlsb, tmo, static_cast<const float*>(stats),
+                                                       static_cast<const bf16*>(b), M, N, K);
   return (int)cudaGetLastError();
 }
 

@@ -52,9 +52,8 @@
 // wgmma rate. The copies go by TMA because copies issued by the warps
 // themselves (cp.async, 16 bytes a thread) cost them as much time as the
 // MMAs and did not overlap them (PERF.md, section 6).
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time: no libcuda link)
-
 #include "attention_tc.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -84,39 +83,6 @@ size_t smem_bytes(int S) {
   return 1024 + ring_bytes(S) + 3 * (size_t)rows_for(S) * row_ld(kHd) * sizeof(bf16) + kStages * 8;
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-// TMA: a box of the tensor map at coordinates (innermost first) into shared
-// memory, completing on bar's transaction count.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
-          "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
 // Phase 1: the head's q, k and v rows 0..R-1 into qkv_s ([3][R][row_ld]).
 // MTW: m16 tiles a warp takes, ceil(m_tiles / 4); a warp of a group with
 // fewer repeats its group's last tile (tile m_tiles - 1) and does not store
@@ -137,13 +103,13 @@ __device__ __forceinline__ void project(const CUtensorMap* tmx, const CUtensorMa
   auto load = [&](int i) {
     const int st = i % kStages, c = i >= KT, k0 = (i - c * KT) * kBK;
     bf16* sa = ring + st * stage_elems;
-    mbar_expect_tx(&full[st], (uint32_t)stage_elems * sizeof(bf16));
-    tma_load_3d(sa, tmx, k0, 0, b, &full[st]);
-    tma_load_3d(sa + (R / 2) * kBK, tmx, k0, R / 2, b, &full[st]);
+    sm90::mbar_expect_tx(&full[st], (uint32_t)stage_elems * sizeof(bf16));
+    sm90::tma_load_3d(sa, tmx, k0, 0, b, &full[st]);
+    sm90::tma_load_3d(sa + (R / 2) * kBK, tmx, k0, R / 2, b, &full[st]);
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const int n0 = c * kNC + q * 32;  // part n0 / 64, head dims n0 % 64 .. + 31
-      tma_load_2d(sa + (R + q * 32) * kBK, tmw, k0, (n0 / kHd) * D + h * kHd + n0 % kHd, &full[st]);
+      sm90::tma_load_2d(sa + (R + q * 32) * kBK, tmw, k0, (n0 / kHd) * D + h * kHd + n0 % kHd, &full[st]);
     }
   };
 
@@ -165,7 +131,7 @@ __device__ __forceinline__ void project(const CUtensorMap* tmx, const CUtensorMa
   for (int i = 0; i < steps; ++i) {
     __syncthreads();  // every warp is done with step i - 1: its stage is free
     if (threadIdx.x == 0 && i + kStages - 1 < steps) load(i + kStages - 1);
-    mbar_wait(&full[i % kStages], (i / kStages) & 1);  // step i has landed
+    sm90::mbar_wait(&full[i % kStages], (i / kStages) & 1);  // step i has landed
     const bf16* sa = ring + (i % kStages) * stage_elems;
     const bf16* sb = sa + R * kBK;
     // both k16 halves' fragments first, then the 12 * MTW MMAs back to back
@@ -233,8 +199,8 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
   bf16* qkv_s = reinterpret_cast<bf16*>(base + ring_bytes(S));
   uint64_t* full = reinterpret_cast<uint64_t*>(qkv_s + (size_t)3 * R * row_ld(kHd));
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < kStages; ++st) sm90::mbar_init(&full[st], 1);
+    sm90::mbar_init_fence();
   }
   __syncthreads();
   project<row_tiles_for(KT)>(&tmx, &tmw, bias, qkv_s, ring, full, b, h, S, D);
@@ -267,34 +233,6 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
-                   q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// bf16 tensor map with 32-element (64-byte) rows in its boxes, 64-byte swizzle,
-// zero fill past the bounds.
-bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                const cuuint32_t* box) {
-  EncodeTiled enc = encoder();
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return enc != nullptr &&
-         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int KT, bool PROBE>
 cudaError_t launch_kt(const void* x, const void* w, const void* b, void* o, int B, int S, int H,
                       int causal, float sm_scale, cudaStream_t stream) {
@@ -306,7 +244,10 @@ cudaError_t launch_kt(const void* x, const void* w, const void* b, void* o, int 
   const cuuint64_t w_dims[2] = {(cuuint64_t)D, (cuuint64_t)3 * D};
   const cuuint64_t w_strides[1] = {(cuuint64_t)D * 2};
   const cuuint32_t w_box[2] = {kBK, 32};
-  if (!tensor_map(&tmx, x, 3, x_dims, x_strides, x_box) || !tensor_map(&tmw, w, 2, w_dims, w_strides, w_box))
+  if (!sm90::tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, x_dims, x_strides, x_box,
+                        CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !sm90::tensor_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, w_dims, w_strides, w_box,
+                        CU_TENSOR_MAP_SWIZZLE_64B))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(S);
   auto kernel = qkv_attention_kernel<KT, PROBE>;

@@ -44,6 +44,7 @@ from image_search_tpu_torch.ops.blockmax import (
     ROWS_TILE,
     blockpair_mask,
     blockpair_values,
+    kernel_depth,
 )
 from image_search_tpu_torch.ops.topk import exact_topk
 
@@ -233,10 +234,12 @@ def sketch_duplicate_pairs(
 
 def _prep_sketch(pens, size, sketch: SketchState, rows_per_call: int, granule: int = COLS_TILE):
     """Shared phase 0 of both scans: augment and zero every slab's sketches
-    (_prep_slab), concatenate, pad to a rows_per_call multiple. ``granule``
-    is the kernel's column granule (COLS_TILE for the mask, COLS_TILE_V for
-    the values). Returns (s_all [n_pad, d_s+1] bf16, n_pad, pair slack,
-    nb_real, adjusted rows_per_call)."""
+    (_prep_slab), concatenate, pad to a rows_per_call multiple and the depth
+    to the kernels' k step (``kernel_depth``: d_s + 1 = 65 -> 80, zero
+    columns, so the sweep copies nothing). ``granule`` is the kernel's column
+    granule (COLS_TILE for the mask, COLS_TILE_V for the values). Returns
+    (s_all [n_pad, kernel_depth(d_s+1)] bf16, n_pad, pair slack, nb_real,
+    adjusted rows_per_call)."""
     assert rows_per_call % ROWS_TILE == 0 and rows_per_call % granule == 0
     # small corpora: shrink the call so padding stays proportional to the data
     total_cap = sum(s.shape[0] for s in sketch.sketches)
@@ -259,8 +262,9 @@ def _prep_sketch(pens, size, sketch: SketchState, rows_per_call: int, granule: i
     n_pad = -(-start // rows_per_call) * rows_per_call
     s_all = torch.cat(parts_s) if len(parts_s) > 1 else parts_s[0]
     del parts_s
-    if n_pad != start:
-        s_all = torch.nn.functional.pad(s_all, (0, 0, 0, n_pad - start))
+    da = s_all.shape[1]
+    if n_pad != start or kernel_depth(da) != da:
+        s_all = torch.nn.functional.pad(s_all, (0, kernel_depth(da) - da, 0, n_pad - start))
     nb_real = -(-size // BLOCK)
     return s_all.contiguous(), n_pad, slack, nb_real, rows_per_call
 

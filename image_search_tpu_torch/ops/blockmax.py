@@ -32,7 +32,14 @@ BLOCK = 128          # rows per duplicate-scan block
 ROWS_TILE = 1024     # row granule of a call (8 block rows)
 COLS_TILE = 4096     # column granule of the mask (32 block columns = 1 word)
 COLS_TILE_V = 4 * COLS_TILE  # column granule of the values
-MAX_DEPTH = 80       # the kernel pads d_a with zeros to 5 k-steps of 16
+MAX_DEPTH = 80       # the kernel takes the depth in at most 5 k-steps of 16
+
+
+def kernel_depth(da: int) -> int:
+    """The depth d_a padded with zero columns to the kernel's k step of 16:
+    80 for a 64-dim sketch plus its residual norm. Zero columns change no
+    dot; rows of that depth are 16-byte aligned, as TMA reads them."""
+    return -(-da // 16) * 16
 
 
 def _check_shapes(name, s_rows, s_cols, col_granule):
@@ -76,6 +83,16 @@ def blockpair_mask_reference(s_rows, s_cols, thr_minus_slack: float, row_block0:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def _aligned(t, depth: int):
+    """t itself when its rows are already 16-byte aligned at ``depth``, else
+    a zero-padded [n, depth] copy."""
+    if t.shape[1] == depth and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.zeros((t.shape[0], depth), dtype=t.dtype, device=t.device)
+    out[:, : t.shape[1]] = t
+    return out
+
+
 def _launch(name, fn, s_rows, s_cols, out, *scalars):
     da = s_rows.shape[1]
     for t in (s_rows, s_cols):
@@ -83,7 +100,11 @@ def _launch(name, fn, s_rows, s_cols, out, *scalars):
             raise ValueError(f"{name} kernel: sketches must be contiguous on {s_rows.device}")
     if not 1 <= da <= MAX_DEPTH:
         raise ValueError(f"{name} kernel: depth {da} not in [1, {MAX_DEPTH}]")
-    rc = fn(s_rows.data_ptr(), s_cols.data_ptr(), s_rows.shape[0], s_cols.shape[0], da,
+    # TMA reads rows that start on 16 bytes: other operands are padded here,
+    # a copy that counts in the call's time (dupscan pads its slab as it builds it)
+    depth = da if da % 8 == 0 else kernel_depth(da)
+    s_rows, s_cols = _aligned(s_rows, depth), _aligned(s_cols, depth)
+    rc = fn(s_rows.data_ptr(), s_cols.data_ptr(), s_rows.shape[0], s_cols.shape[0], depth,
             *scalars, out.data_ptr(), _build.stream_handle(s_rows.device))
     _build.check(rc, f"{name} kernel launch")
 

@@ -15,6 +15,11 @@ budget) has no counterpart: the CUDA kernel's tiles are fixed.
 :class:`LnMatmulCore` makes it differentiable as the reference's
 ``ln_matmul_core`` does: the forward is the kernel, the backward autodiff of
 the plain version.
+
+One call launches twice on the current stream: a pass that computes each
+row's mean and rstd into a [2, M] f32 scratch, then the GEMM, which
+normalises x on its way into the tensor cores. ``ln_matmul.launches``
+counts calls.
 """
 
 from __future__ import annotations
@@ -71,10 +76,11 @@ def ln_matmul(x, ln_scale, ln_bias, w, b, eps: float = 1e-5):
     _check_cuda_operands(x, ln_scale, ln_bias, w, b)
     M, K = x.shape
     N = w.shape[0]
-    ls, lb = (t.to(torch.float32).contiguous() for t in (ln_scale, ln_bias))
+    lsb = torch.stack([t.to(torch.float32) for t in (ln_scale, ln_bias)])
+    stats = torch.empty((2, M), dtype=torch.float32, device=x.device)  # each row's mean and rstd
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     rc = _build.lib().isx_ln_matmul(
-        x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        x.data_ptr(), lsb.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), stats.data_ptr(),
         M, N, K, float(eps), _build.stream_handle(x.device),
     )
     _build.check(rc, "ln_matmul kernel launch")

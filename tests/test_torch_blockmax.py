@@ -6,6 +6,10 @@ bf16 sketches.
 The mask must be BITWISE equal: its thresholds are kept 1e-5 away from every
 block maximum, since the two frameworks sum the 65 products in different
 orders (a maximum moves by ~1e-7). The values agree within 2e-5.
+
+The duplicate scan hands the kernels its sketch slab with the depth padded
+from 65 to 80 (``dupscan._prep_sketch``, TMA's 16-byte rows): the padded
+slab must give exactly what the 65-wide operand gives.
 """
 
 import jax.numpy as jnp
@@ -14,9 +18,12 @@ import pytest
 import torch
 
 from image_search_tpu.ops import blockmax as jax_blockmax
+from image_search_tpu_torch.index.dupscan import _prep_sketch
+from image_search_tpu_torch.index.twostage import SketchState
 from image_search_tpu_torch.ops import blockmax
 
 DA = 65  # a 64-dim sketch plus the residual norm
+DIM_UNUSED = 768  # the basis's row count: _prep_sketch does not read the basis
 MARGIN = 1e-5
 
 
@@ -103,3 +110,40 @@ def test_shape_contract_is_the_references():
     meta = torch.empty(1024, DA, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="no route"):
         blockmax.blockpair_values(meta, torch.empty(16384, DA, dtype=torch.bfloat16, device="meta"), 0)
+
+
+@pytest.mark.parametrize("rb0", [0, 4])
+def test_prep_sketch_slab_padded_to_80_changes_no_maximum(rb0):
+    """_prep_sketch's 80-wide slab gives, through the plain versions, exactly
+    the maxima and words of its 65-wide part, and what the JAX package's
+    kernels give on the 65-wide operand."""
+    n, size = 2 * blockmax.COLS_TILE_V, 2 * blockmax.COLS_TILE_V - 300  # rows past size are zeroed
+    rng = np.random.default_rng(11 + rb0)
+    sk = rng.normal(size=(n, DA - 1)).astype(np.float32) / np.sqrt(DA)
+    resid = np.abs(rng.normal(size=n)).astype(np.float32) / np.sqrt(DA)
+    state = SketchState(
+        basis=torch.zeros(DIM_UNUSED, DA - 1), sketches=(torch.from_numpy(sk),), resid=(torch.from_numpy(resid),),
+        built_rows=size,
+    )
+    s_all, n_pad, _, nb_real, _ = _prep_sketch(None, size, state, n, granule=blockmax.COLS_TILE_V)
+    assert s_all.shape == (n_pad, blockmax.kernel_depth(DA)) == (n, 80)
+    assert s_all.dtype == torch.bfloat16 and s_all.is_contiguous() and nb_real == -(-size // 128)
+    assert not s_all[:, DA:].any()
+    s65 = s_all[:, :DA].contiguous()
+    r = blockmax.ROWS_TILE
+    rows80, rows65 = s_all[rb0 * 128 : rb0 * 128 + r], s65[rb0 * 128 : rb0 * 128 + r]
+    m80 = blockmax.blockpair_values(rows80, s_all, rb0)
+    m65 = blockmax.blockpair_values(rows65, s65, rb0)
+    assert torch.equal(m80, m65)
+    rows_j, cols_j = jnp.asarray(rows65.float().numpy(), jnp.bfloat16), jnp.asarray(s65.float().numpy(), jnp.bfloat16)
+    want = np.asarray(jax_blockmax.blockpair_values(rows_j, cols_j, jnp.int32(rb0), interpret=True))
+    np.testing.assert_array_equal(np.isinf(m80.numpy()), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(m80.numpy()[fin], want[fin], rtol=0, atol=2e-5)
+    for thr in _thresholds(m65.numpy().astype(np.float64)):
+        w80 = blockmax.blockpair_mask(rows80, s_all, thr, rb0)
+        assert torch.equal(w80, blockmax.blockpair_mask(rows65, s65, thr, rb0))
+        np.testing.assert_array_equal(
+            w80.numpy(),
+            np.asarray(jax_blockmax.blockpair_mask(rows_j, cols_j, jnp.float32(thr), jnp.int32(rb0), interpret=True)),
+        )

@@ -253,7 +253,11 @@ def _threshold_between_maxima(m, q):
     return float((v[i] + v[i + 1]) / 2)
 
 
-@pytest.mark.parametrize("R,N,da,rb0", [(1024, 8192, 65, 0), (2048, 8192, 65, 4), (1024, 4096, 17, 3), (1024, 4096, 80, 1)])
+@pytest.mark.parametrize(
+    "R,N,da,rb0",
+    [(1024, 8192, 65, 0), (2048, 8192, 65, 4), (1024, 4096, 17, 3), (1024, 4096, 80, 1), (1024, 8192, 72, 2),
+     (1024, 8192, 33, 5), (2048, 16384, 65, 40)],
+)
 def test_blockpair_mask_kernel_bitwise_equals_plain(dev, R, N, da, rb0):
     s_cols = _sketches(dev, N, da, R + N + da)
     s_rows = s_cols[rb0 * 128 : rb0 * 128 + R].contiguous() if rb0 * 128 + R <= N else _sketches(dev, R, da, 1)
@@ -269,7 +273,10 @@ def test_blockpair_mask_kernel_bitwise_equals_plain(dev, R, N, da, rb0):
         assert bool((want < 0).any()) or q > 0.9  # bit 31 set somewhere at the median
 
 
-@pytest.mark.parametrize("R,N,da,rb0", [(1024, 16384, 65, 4), (2048, 16384, 65, 0), (1024, 16384, 33, 100)])
+@pytest.mark.parametrize(
+    "R,N,da,rb0",
+    [(1024, 16384, 65, 4), (2048, 16384, 65, 0), (1024, 16384, 33, 100), (2048, 16384, 72, 40), (1024, 16384, 17, 0)],
+)
 def test_blockpair_values_kernel_matches_plain(dev, R, N, da, rb0):
     s_cols = _sketches(dev, N, da, R + N)
     s_rows = _sketches(dev, R, da, 2)
@@ -281,6 +288,30 @@ def test_blockpair_values_kernel_matches_plain(dev, R, N, da, rb0):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
     assert (got[fin] - want[fin]).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("rb0", [0, 40])
+def test_blockpair_kernels_take_the_scan_slab_padded_to_80(dev, rb0):
+    """The duplicate scan's operand (dupscan._prep_sketch pads d_a = 65 to
+    80 with zeros, so the launch copies nothing): the words bitwise and the
+    maxima within 2e-5 of the plain versions on the 65-wide operand, with a
+    row block past the first column word at rb0 = 40."""
+    R, N = 2048, 16384
+    s65 = _sketches(dev, N, 65, 80 + rb0)
+    s80 = F.pad(s65, (0, 15))
+    rows65, rows80 = s65[rb0 * 128 : rb0 * 128 + R], s80[rb0 * 128 : rb0 * 128 + R]
+    want = blockmax.blockpair_values_reference(rows65, s65, rb0)
+    n0 = blockmax.blockpair_values.launches
+    got = blockmax.blockpair_values(rows80, s80, rb0)
+    torch.cuda.synchronize()
+    assert blockmax.blockpair_values.launches == n0 + 1
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert (got[fin] - want[fin]).abs().max().item() <= 2e-5
+    for q in (0.5, 0.99):
+        thr = _threshold_between_maxima(want, q)
+        assert torch.equal(blockmax.blockpair_mask(rows80, s80, thr, rb0),
+                           blockmax.blockpair_mask_reference(rows65, s65, thr, rb0))
 
 
 def test_blockpair_kernels_reject_what_they_cannot_take(dev):
@@ -580,12 +611,17 @@ def test_qkv_kernels_reject_what_they_cannot_take(dev):
         attn.fused_attention_qkv_packed(torch.zeros(1, 8, 384, device=dev, dtype=torch.bfloat16), 8)
 
 
-@pytest.mark.parametrize("M,K,N", [(41_120, 1024, 3072), (1000, 1024, 4096), (33, 32, 48), (130, 40, 200), (1, 8, 8)])
+@pytest.mark.parametrize(
+    "M,K,N",
+    [(41_120, 1024, 3072), (1000, 1024, 4096), (33, 32, 48), (130, 40, 200), (1, 8, 8), (41_120, 1024, 4096),
+     (257, 72, 136)],
+)
 def test_ln_matmul_kernel_matches_plain(dev, M, K, N):
     """B9 against its bf16 plain version within 2e-2 x max|plain| and per
     row cosine >= 0.9999 against the f32 plain version, at the vision
-    tower's ln1 -> qkv shape and at edges: an M that is not a tile multiple,
-    a K that is not a multiple of the 32-deep tile, N below one tile."""
+    tower's ln1 -> qkv and ln2 -> fc shapes and at edges: an M that is not a
+    tile multiple, a K below or past a multiple of the 64-deep k step
+    (K = 72: a second step of 8 columns), N below one 256-column tile."""
     from image_search_tpu_torch.ops.ln_matmul import ln_matmul, ln_matmul_reference
 
     g = torch.Generator(device=dev).manual_seed(M + K + N)
