@@ -51,17 +51,29 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    B2's share of it), certified on 262,144 concentrated 768-d rows through ?async=1 and
    ?job= (pairs against a brute-force f32 oracle), approximate on 1,048,576
    flat rows (every planted pair found, every emitted pair's score checked);
-7. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
+7. the certified two-stage search: a fresh server with ``--search-twostage``
+   on the same 64 photos (/scan, cold /search plain and with feedback on
+   the fused tokens -> tower -> Rocchio -> two-stage path, a warm repeat,
+   POST /search_image plain and with ?ref=, GET /metrics), each answer
+   against the full scan of the same index; then direct at 10,000,000 int8
+   rows x 768 made on the card in ten slabs, f32 and bf16 sketches, B = 1
+   and 4: ``twostage_topk_block`` against the full scan (scores bitwise,
+   ids equal; a query that fails its certificate must have needed more
+   blocks in a slab than its quota), timed in turns and split into its
+   parts, B2 at the rescore's shape, ``search_twostage`` against ``search``,
+   and a flat 2^20-row corpus whose certificates fail and whose answers are
+   the full scan's;
+8. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
    B=8) on the card against the same step in f32 on the CPU: loss and
    gradient cosines, and B1/B5 launches per step; the same card step under
    ``ISX_ATTN_PIPE=0`` and ``ISX_ATTN_SPLIT=1`` (loss within 1e-2 of the
    default route's, B5 on every backward);
-8. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
+9. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
    with captions, batch 64, 6 steps, with ``--eval-dir`` and
    ``--checkpoint-dir``, once without and once with ``--remat``: the loss
    falls, the output checkpoint reads back with new weights, B1/B5 launch
    counts; ms/step, pairs/s, peak memory;
-9. a ``torch.profiler`` split of one batch-64 train step's device time.
+10. a ``torch.profiler`` split of one batch-64 train step's device time.
 
 Each phase sets the attention route switches it needs and restores them
 after. The second-to-last line is a JSON object describing every kernel of
@@ -767,8 +779,8 @@ def phase_towers(torch, gen, dev, smi):
             "routes": routes, "fused": fused}
 
 
-def _http(method: str, url: str, body=None):
-    data = None if body is None else json.dumps(body).encode()
+def _http(method: str, url: str, body=None, raw=None):
+    data = raw if raw is not None else None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data, method=method)
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=600) as r:
@@ -799,9 +811,10 @@ def _plain_top(torch, engine, query: str, refs, k: int):
 
 
 @contextlib.contextmanager
-def _serving(dev, model: str):
+def _serving(dev, model: str, flags=()):
     """The HTTP server over 64 synthetic BMP photos and an empty int8 index,
-    seeded random weights: yields (engine, base URL, media dir, k)."""
+    seeded random weights, with ``flags`` added to the command line: yields
+    (engine, base URL, media dir, k)."""
     import numpy as np
 
     from image_search_tpu_torch.ingest.decode import write_bmp24
@@ -822,7 +835,7 @@ def _serving(dev, model: str):
             "--media-dir", media, "--index-dir", os.path.join(tmp, "index"),
             "--index-quantize", "int8", "--model", model,
             "--model-weights", os.path.join(tmp, "no-checkpoint.safetensors"),
-            "--device", str(dev),
+            "--device", str(dev), *flags,
         ])
         engine = SearchEngine(args, device=device)
         server = make_server(engine, "127.0.0.1", 0)
@@ -917,6 +930,326 @@ def phase_server_routes(torch, dev, model: str = "clip-vit-large-patch14"):
         check(_attention_launches(launches) == want, f"{route} route: /scan + /search launched {launches}, want {want}")
         res[route] = dict(launches=launches, **times)
     return res
+
+
+TWOSTAGE_ROWS = 10_000_000  # the archive corpus of the two-stage phase, int8 x 768 = 7.7 GB
+TWOSTAGE_SLAB = 1 << 20  # rows per slab, as the index allocates them
+TWOSTAGE_K, TWOSTAGE_C = 1000, 4096  # the engine's k and candidate budget
+
+
+def _check_images(name: str, body, k: int):
+    check(set(body) == {"images"} and len(body["images"]) == k, f"{name}: {len(body.get('images', []))} images, want {k}")
+    for d in body["images"]:
+        check(set(d) == {"id", "image_path", "score"} and d["image_path"].startswith("media/"), f"{name}: row {d}")
+
+
+def _same_answer(name: str, got_s, got_p, want_s, want_p):
+    """Scores equal; paths equal wherever the score is not tied."""
+    check(list(got_s) == list(want_s), f"{name}: scores differ from the full scan")
+    distinct = [j for j in range(len(got_s)) if list(got_s).count(got_s[j]) == 1]
+    check(all(got_p[j] == want_p[j] for j in distinct), f"{name}: ids differ from the full scan")
+
+
+def twostage_http(torch, dev, model: str = "clip-vit-large-patch14"):
+    """--search-twostage --index-quantize int8 on the 64 photos: /scan,
+    /search plain and with feedback (two cold queries: the fused path), a
+    warm repeat of both (the two-stage feedback batch), POST /search_image
+    plain and with ?ref=, GET /metrics. /search against the plain scoring of
+    the same index; /search_image against index.search (search_with_feedback)
+    on the photo's B=1 embedding. -> (launches of the run, request times)."""
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.ingest.decode import decode_image_bytes
+    from image_search_tpu_torch.utils.metrics import global_metrics
+
+    cfg = get_config(model)
+    with _serving(dev, model, ["--search-twostage"]) as (engine, base, media, k):
+        fused0 = global_metrics.snapshot()["counters"].get("fused_searches", 0)
+        _reset_counts()
+        st, scan, _ = _http("GET", base + "/scan")
+        check(st == 200 and scan["embedded"] == 64, f"two-stage /scan: {scan}")
+        check(engine.index.sketch_fresh, "two-stage: no sketch after /scan")
+        plain_q, fb_q = "a red square", "a green square"
+        st1, plain, ms1 = _http("POST", base + "/search", {"q": plain_q, "referenced_images": []})
+        marked = [plain["images"][0]["image_path"], plain["images"][5]["image_path"]]
+        st2, fb, ms2 = _http("POST", base + "/search", {"q": fb_q, "referenced_images": marked})
+        fused = global_metrics.snapshot()["counters"].get("fused_searches", 0) - fused0
+        st3, plain_w, ms3 = _http("POST", base + "/search", {"q": plain_q, "referenced_images": []})
+        st4, fb_w, ms4 = _http("POST", base + "/search", {"q": fb_q, "referenced_images": marked})
+        photo = sorted(engine.index.paths)[7]
+        with open(photo, "rb") as f:
+            data = f.read()
+        st5, img, ms5 = _http("POST", base + "/search_image", raw=data)
+        qs = urllib.parse.urlencode([("ref", m) for m in marked])
+        st6, img_fb, ms6 = _http("POST", base + f"/search_image?{qs}", raw=data)
+        st7, metrics, _ = _http("GET", base + "/metrics")
+        torch.cuda.synchronize()
+        launches = _read_counts()
+
+        check(all(s == 200 for s in (st1, st2, st3, st4, st5, st6, st7)), "two-stage: a request failed")
+        for name, body in (("plain", plain), ("feedback", fb), ("plain warm", plain_w), ("feedback warm", fb_w),
+                           ("image", img), ("image feedback", img_fb)):
+            _check_images(f"two-stage /search {name}", body, k)
+        check(fused == 2, f"two-stage: {fused} fused searches, want the 2 cold ones")
+        for name, body, q, refs in (("plain", plain, plain_q, []), ("feedback", fb, fb_q, marked),
+                                    ("plain warm", plain_w, plain_q, []), ("feedback warm", fb_w, fb_q, marked)):
+            want_s, want_p = _plain_top(torch, engine, q, refs, k)
+            _same_answer(f"two-stage /search {name}", [d["score"] for d in body["images"]],
+                         [engine.to_abs_path(d["image_path"]) for d in body["images"]], want_s, want_p)
+        emb = engine.embedder.embed_images_async([decode_image_bytes(data)], min_bucket=1)[:1]
+        sel = [engine._resolve_selection(m) for m in marked]
+        for name, body, (s_, i_) in (("image", img, engine.index.search(emb, k)),
+                                     ("image feedback", img_fb, engine.index.search_with_feedback(emb, sel, k))):
+            _same_answer(f"two-stage /search_image {name}", [d["score"] for d in body["images"]],
+                         [engine.to_abs_path(d["image_path"]) for d in body["images"]],
+                         s_[0].tolist(), [engine.index.paths[j] for j in i_[0].tolist()])
+        check(img["images"][0]["image_path"] == engine.to_media_path(photo), "/search_image: the photo is not its own top hit")
+        g = metrics["gauges"]
+        check(set(metrics) == {"uptime_sec", "counters", "gauges", "latencies", "model"} and metrics["model"] == model,
+              f"/metrics keys {set(metrics)}")
+        check(g["corpus_size"] == 64.0 and g["twostage_sketch_active"] == 1.0, f"/metrics gauges {g}")
+        check(g["twostage_certified_total"] == engine.index.twostage_certified == 6
+              and engine.index.twostage_fallbacks == 0,
+              f"two-stage: {engine.index.twostage_certified} certified, {engine.index.twostage_fallbacks} fallbacks")
+        L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
+        want = {"fused_attention": 3 * L_v + 2 * L_t}  # /scan, 2 cold queries, 2 image queries at B=1
+        check(_attention_launches(launches) == want, f"two-stage run launched {launches}, want {want}")
+        check(launches["stream_scores_int8"] >= 6, f"two-stage: B2 not on the rescore path: {launches}")
+    times = dict(search_cold_ms=(ms1, ms2), search_warm_ms=(ms3, ms4), search_image_ms=(ms5, ms6))
+    print(f"two-stage server: {engine.index.twostage_certified} certified, 0 fallbacks, fused_searches +{fused}; "
+          f"launches {launches}; {times}")
+    return launches, times
+
+
+def _slabs_on_device(torch, gen, dev, n: int, mix=None, noise: float = 0.02):
+    """int8 slabs of TWOSTAGE_SLAB rows (the last one partial, a multiple of
+    4096) holding n rows made on the card: a rank-64 mix plus noise when
+    ``mix`` is given, else Gaussian; l2-normalised, quantised by the port's
+    quantize_rows_int8. -> (slabs, scales)."""
+    from image_search_tpu_torch.ops.score_stream import quantize_rows_int8
+
+    slabs, scales = [], []
+    for lo in range(0, n, TWOSTAGE_SLAB):
+        rows = min(TWOSTAGE_SLAB, n - lo)
+        cap = -(-rows // 4096) * 4096
+        slab = torch.zeros((cap, DIM), dtype=torch.int8, device=dev)
+        scale = torch.zeros(cap, device=dev)
+        for c0 in range(0, rows, 262_144):  # one f32 chunk at a time
+            c1 = min(rows, c0 + 262_144)
+            if mix is None:
+                e = torch.randn(c1 - c0, DIM, generator=gen, device=dev)
+            else:
+                e = torch.randn(c1 - c0, mix.shape[0], generator=gen, device=dev) @ mix
+                e += noise * torch.randn(c1 - c0, DIM, generator=gen, device=dev)
+            slab[c0:c1], scale[c0:c1] = quantize_rows_int8(torch.nn.functional.normalize(e, dim=-1))
+        slabs.append(slab)
+        scales.append(scale)
+    return slabs, scales
+
+
+def _index_over(torch, dev, slabs, scales, n: int):
+    """A VectorIndex over slabs made on the card (VectorIndex.add quantises on
+    the host: minutes and a 30 GB host array at 10M rows); no paths."""
+    from image_search_tpu_torch.index.index import VectorIndex
+
+    index = VectorIndex(DIM, device=dev, quantize="int8")
+    index._emb_slabs, index._scale_slabs = list(slabs), list(scales)
+    index._norm_slabs = [torch.ones(s.shape[0], device=dev) for s in slabs]
+    index._pen_slabs = [torch.zeros(s.shape[0], device=dev) for s in slabs]
+    index._size = n
+    return index
+
+
+def _needed_blocks(torch, twostage, slabs, sk, n: int, q, tau, m: int, share: int):
+    """For each query and slab: the blocks whose bound exceeds tau (the k-th
+    exact score), which a certificate needs chosen, and the query's own pick
+    per slab (quota, or quota // share under the union). -> ([B, slabs], [slabs])."""
+    qt, _, _ = twostage._exact_query_vector(q, True)
+    q_s, q_res, infl = twostage._query_bound_terms(qt, sk.basis, sk.ub_slack)
+    nb_list = [s.shape[0] // twostage.BLOCK for s in slabs]
+    quotas = [min(nb_i, -(-m * nb_i // sum(nb_list))) for nb_i in nb_list]
+    needed, start = [], 0
+    for i, s in enumerate(sk.sketches):
+        ub = twostage._upper_bounds(q_s, q_res, infl, s, sk.resid[i], None, start, n)
+        needed.append((ub.reshape(q.shape[0], -1, twostage.BLOCK).amax(dim=2) > tau[:, None]).sum(dim=1))
+        start += s.shape[0]
+    own = [mi if share == 1 or mi <= 1 else max(1, mi // share) for mi in quotas]
+    return torch.stack(needed, dim=1).cpu(), torch.tensor(own)
+
+
+def _split_ms(torch, call, iters: int = 5):
+    """Median device ms of each part of twostage_topk_block (its ``timer``
+    marks: stage1, gather, rescore, topk), CUDA events at each mark."""
+    parts = {}
+    for _ in range(iters + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        start.record()
+        call(mark)
+        torch.cuda.synchronize()
+        prev = start
+        for name, e in marks:
+            parts.setdefault(name, []).append(prev.elapsed_time(e))
+            prev = e
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}  # the first call warms up
+
+
+def twostage_10m(torch, dev):
+    """twostage_topk_block against the full scan (_search_local: B2 per slab +
+    exact_topk) on TWOSTAGE_ROWS concentrated int8 rows made on the card,
+    f32 and bf16 sketches, B = 1 and 4: every query certified, scores bitwise
+    and ids equal (ties aside); times in turns and the two-stage split; B2 on
+    the gathered rows of one selection against its plain version;
+    search_twostage against search end to end. Then 2^20 flat rows: every
+    certificate fails and search_twostage answers with the full scan."""
+    from image_search_tpu_torch.index import twostage
+    from image_search_tpu_torch.index.index import VectorIndex, _search_local
+    from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, scores_int8_reference, stream_scores_int8
+    from image_search_tpu_torch.ops.topk import exact_topk
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n, k = TWOSTAGE_ROWS, TWOSTAGE_K
+    mix = torch.randn(64, DIM, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    slabs, scales = _slabs_on_device(torch, gen, dev, n, mix)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    index = _index_over(torch, dev, slabs, scales, n)
+    sketches, build_s = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        index.build_sketch(dtype=dtype)
+        torch.cuda.synchronize()
+        build_s[dtype] = time.perf_counter() - t0
+        sketches[dtype] = index._sketch
+    nb = sum(s.shape[0] for s in slabs) // twostage.BLOCK
+    print(f"two-stage 10M: {n} rows x {DIM} int8 in {len(slabs)} slabs made in {gen_s:.2f} s; sketch builds {build_s}; "
+          f"device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    slabs, scales = tuple(slabs), tuple(scales)
+    res = {"rows": n, "k": k, "slabs": len(slabs), "sketch_build_s": build_s}
+    for B in (1, 4):
+        q = torch.randn(B, 64, generator=gen, device=dev) @ mix + 0.02 * torch.randn(B, DIM, generator=gen, device=dev)
+        want_s, want_i = _search_local(slabs, n, q, k, scales)
+
+        def full():
+            return _search_local(slabs, n, q, k, scales)
+
+        qi, qs = quantize_queries_int8(q)
+        starts = [sum(s.shape[0] for s in slabs[:j]) for j in range(len(slabs))]
+        scores = torch.cat([stream_scores_int8(sl, qi, qs, scales[j], n - starts[j]) for j, sl in enumerate(slabs)], dim=1)
+        b2_ms = statistics.median(cuda_ms(torch, lambda: [stream_scores_int8(sl, qi, qs, scales[j], n - starts[j])
+                                                          for j, sl in enumerate(slabs)], iters=5))
+        topk_ms = statistics.median(cuda_ms(torch, lambda: exact_topk(scores, k), iters=5))
+        del scores
+        wall, busy, top = _profiled(torch, full)
+        res[("full", B)] = dict(profiled_wall_ms=wall, device_busy_ms=busy)
+        print(f"full scan 10M B={B}: profiled call wall {wall} ms, device busy {busy} ms; top kernels {top[:4]}")
+        for dtype, sk in sketches.items():
+            share = 1 << (B - 1).bit_length() if B > 1 else 1
+            m = VectorIndex._block_budget(sk, TWOSTAGE_C, share, nb)
+
+            def two(timer=None):
+                return twostage.twostage_topk_block(slabs, sk.sketches, sk.resid, sk.basis, n, q, k, m, scales,
+                                                    None, sk.ub_slack, share, timer=timer)
+
+            s_, i_, cert = two()
+            needed, own = _needed_blocks(torch, twostage, slabs, sk, n, q, want_s[:, k - 1], m, share)
+            for b in range(B):
+                # the certificate holds iff every block whose bound exceeds the
+                # k-th exact score was chosen; a query's own top blocks of each
+                # slab always are, so it can fail only where a slab needs more
+                fits = bool((needed[b] <= own).all())
+                check(bool(cert[b]) or not fits, f"two-stage 10M {dtype} B={B}: query {b} failed within its quotas")
+            if bool(cert.all()):
+                check(torch.equal(s_, want_s), f"two-stage 10M {dtype} B={B}: scores not bitwise the full scan's")
+                ties = torch.zeros_like(s_, dtype=torch.bool)
+                ties[:, 1:] |= s_[:, 1:] == s_[:, :-1]
+                ties[:, :-1] |= s_[:, :-1] == s_[:, 1:]
+                check(torch.equal(i_[~ties], want_i[~ties]), f"two-stage 10M {dtype} B={B}: ids differ")
+                check(torch.equal(torch.sort(i_[ties]).values, torch.sort(want_i[ties]).values)
+                      or bool(ties[:, -1].any()), f"two-stage 10M {dtype} B={B}: tied ids differ")
+                verdict = f"certified, scores bitwise the full scan's ({int(ties.sum())} tied positions)"
+            else:
+                index._sketch = sk
+                got = index.search_twostage(q, k, count_failures=False)
+                check((got[0] == want_s.cpu().numpy()).all(), f"two-stage 10M {dtype} B={B}: fallback differs")
+                verdict = f"NOT certified {cert.tolist()}: search_twostage answers with the full scan's scores"
+            two_ms, full_ms = ab_ms(torch, full, two, iters=5)
+            split = _split_ms(torch, two)
+            wall, busy, top = _profiled(torch, two)
+            res[(dtype, B)] = dict(twostage_ms=two_ms, full_ms=full_ms, m=m, split=split, certified=cert.tolist(),
+                                   needed_blocks=needed.sum(dim=1).tolist(), needed_max_per_slab=needed.amax(dim=1).tolist(),
+                                   own_per_slab=own.tolist(), full_b2_ms=b2_ms, full_topk_ms=topk_ms,
+                                   profiled_wall_ms=wall, device_busy_ms=busy)
+            print(f"two-stage 10M {dtype} sketch B={B}: {verdict}; two-stage {two_ms} ms vs full scan {full_ms} ms "
+                  f"({full_ms / two_ms:.2f}x) in turns; m={m} blocks = {m * twostage.BLOCK} rows; split {split}; "
+                  f"blocks whose bound exceeds tau, per query {needed.sum(dim=1).tolist()}, most in one slab "
+                  f"{needed.amax(dim=1).tolist()} against a query's own per-slab pick {own.tolist()}; profiled call "
+                  f"wall {wall} ms, device busy {busy} ms; top kernels {top[:5]}; full scan: B2 over {len(slabs)} "
+                  f"slabs {b2_ms} ms + exact_topk {topk_ms} ms")
+
+    # B2 at the rescore's shape: the rows of one selection's blocks against the plain version
+    qi, qs = quantize_queries_int8(torch.randn(4, 64, generator=gen, device=dev) @ mix)
+    blocks = torch.randperm(TWOSTAGE_SLAB // twostage.BLOCK, generator=gen, device=dev)[:TWOSTAGE_C]
+    rows = slabs[0].view(-1, twostage.BLOCK, DIM)[blocks].reshape(-1, DIM)
+    rscale = scales[0].view(-1, twostage.BLOCK)[blocks].reshape(-1)
+    N = rows.shape[0]
+    for B in (1, 4):
+        got = stream_scores_int8(rows, qi[:B], qs[:B], rscale, N)
+        check(torch.equal(got, scores_int8_reference(rows, qi[:B], qs[:B], rscale, N)),
+              f"B2 at the rescore shape B={B}: not bitwise its plain version")
+        k_ms, p_ms = ab_ms(torch, lambda: scores_int8_reference(rows, qi[:B], qs[:B], rscale, N),
+                           lambda: stream_scores_int8(rows, qi[:B], qs[:B], rscale, N), iters=10)
+        b_ms, _ = bound(N * DIM + B * DIM + 4 * B + 4 * N + 4 * B * N, 2 * B * N * DIM, INT8_OP_PER_S)
+        res[("rescore_b2", B)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, rows=N)
+        print(f"B2 at the rescore shape N={N} B={B}: bitwise plain; kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms")
+    del rows
+
+    # the entry points, end to end (host clock and fetch included): f32 sketch, B=1
+    index._sketch = sketches["float32"]
+    q = torch.randn(1, 64, generator=gen, device=dev) @ mix
+    c0 = index.twostage_certified
+    got, want = index.search_twostage(q, k), index.search(q, k)
+    check(index.twostage_certified == c0 + 1 and (got[0] == want[0]).all(), "search_twostage at 10M: not certified or differs")
+    e2e_two, e2e_full = ab_ms(torch, lambda: index.search(q, k), lambda: index.search_twostage(q, k), iters=5)
+    res["search_twostage_ms"], res["search_ms"] = e2e_two, e2e_full
+    print(f"VectorIndex at 10M, B=1: search_twostage {e2e_two} ms vs search {e2e_full} ms (events around each call)")
+    del index, sketches, slabs, scales, want_s, want_i
+    torch.cuda.empty_cache()
+
+    # a flat corpus: the certificate must fail, the answer is the full scan's
+    n = TWOSTAGE_SLAB
+    slabs, scales = _slabs_on_device(torch, gen, dev, n)
+    index = _index_over(torch, dev, slabs, scales, n)
+    index.build_sketch()
+    for B in (1, 4):
+        q = torch.randn(B, DIM, generator=gen, device=dev)
+        f0, c0 = index.twostage_fallbacks, index.twostage_certified
+        got, want = index.search_twostage(q, k), index.search(q, k)
+        check(index.twostage_fallbacks == f0 + 1 and index.twostage_certified == c0,
+              f"flat corpus B={B}: the certificate did not fail")
+        check((got[0] == want[0]).all() and (got[1] == want[1]).all(), f"flat corpus B={B}: fallback differs")
+    q = torch.randn(1, DIM, generator=gen, device=dev)
+    fb_ms, full_ms = ab_ms(torch, lambda: index.search(q, k),
+                           lambda: index.search_twostage(q, k, count_failures=False), iters=5)
+    res["flat"] = dict(rows=n, fallback_ms=fb_ms, full_ms=full_ms)
+    print(f"two-stage flat {n} rows: every certificate failed, answers the full scan's; "
+          f"search_twostage (bound pass + fallback) {fb_ms} ms vs search {full_ms} ms")
+    del index, slabs, scales
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_twostage(torch, dev):
+    """The certified two-stage search: served over HTTP, then direct at 10M
+    rows and on a flat corpus."""
+    launches, times = twostage_http(torch, dev)
+    return launches, times, twostage_10m(torch, dev)
 
 
 def _kernel_counts():
@@ -1427,11 +1760,44 @@ def _kernel_class(name: str) -> str:
     return "elementwise"
 
 
+def _device_split(prof):
+    """A profile's device time (ms) by kernel class, and its 8 costliest
+    kernels as (ms, name)."""
+    from torch.autograd import DeviceType
+
+    split, top = {}, []
+    events = prof.key_averages()
+    # a user annotation (the optimizer's record_function) has a device-side
+    # twin spanning its kernels: count only names that are not CPU events
+    cpu_names = {evt.key for evt in events if getattr(evt, "device_type", None) == DeviceType.CPU}
+    for evt in events:
+        if getattr(evt, "device_type", None) != DeviceType.CUDA or evt.key in cpu_names:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        split[_kernel_class(evt.key)] = split.get(_kernel_class(evt.key), 0.0) + us / 1e3
+        top.append((us / 1e3, evt.key[:60]))
+    return split, sorted(top, reverse=True)[:8]
+
+
+def _profiled(torch, fn):
+    """One call of fn under torch.profiler -> (wall ms, device busy ms, the
+    8 costliest kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split, top = _device_split(prof)
+    return wall, sum(split.values()), top
+
+
 def phase_train_profile(torch, dev):
     """Where one batch-64 ViT-L/14 train step spends the card's time:
     host-clock ms/step over 3 steps, then ``torch.profiler`` over one."""
-    from torch.autograd import DeviceType
-
     from image_search_tpu_torch.config import get_config
     from image_search_tpu_torch.models.convert import build_model, init_params
     from image_search_tpu_torch.train.contrastive import adamw, make_train_step
@@ -1455,20 +1821,8 @@ def phase_train_profile(torch, dev):
         st, m = step_fn(st, ids, pixels)
         float(m["loss"])
         wall = (time.perf_counter() - t0) * 1e3
-    split, top = {}, []
-    events = prof.key_averages()
-    # a user annotation (the optimizer's record_function) has a device-side
-    # twin spanning its kernels: count only names that are not CPU events
-    cpu_names = {evt.key for evt in events if getattr(evt, "device_type", None) == DeviceType.CPU}
-    for evt in events:
-        if getattr(evt, "device_type", None) != DeviceType.CUDA or evt.key in cpu_names:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        us = evt.self_cuda_time_total if us is None else us
-        split[_kernel_class(evt.key)] = split.get(_kernel_class(evt.key), 0.0) + us / 1e3
-        top.append((us / 1e3, evt.key[:60]))
+    split, top = _device_split(prof)
     busy = sum(split.values())
-    top = sorted(top, reverse=True)[:8]
     print(f"train profile ViT-L/14 B={TRAIN_BATCH} no remat: {statistics.median(times)} ms/step host clock "
           f"({times}); profiled step wall {wall} ms, device busy "
           + (f"{busy} ms ({busy / wall:.1%}): {split}; top kernels {top}" if busy else "not measured (no device events)"))
@@ -1519,6 +1873,7 @@ def main() -> int:
     towers = phase_towers(torch, gen, dev, smi)
     launches, dup = phase_server(torch, dev)
     served = phase_server_routes(torch, dev)
+    ts_launches, ts_times, ts = phase_twostage(torch, dev)
     grad = phase_train_grad(torch, dev)
     ft = phase_finetune(torch, dev, smi)
     prof = phase_train_profile(torch, dev)
@@ -1534,14 +1889,16 @@ def main() -> int:
 
     print(smi)
     print(json.dumps({"kernels": [
-        entry("fused_attention", "attention.cu", "attention.py:665", launches["fused_attention"],
+        entry("fused_attention", "attention.cu", "attention.py:665",
+              launches["fused_attention"] + ts_launches["fused_attention"],
               kern[("grouped", 257)],
               max(kern[("grouped", 257)]["max_abs_err"], kern[("grouped", 77)]["max_abs_err"])),
         entry("fused_attention_packed", "attention.cu", "attention.py:29",
               served["packed"]["launches"]["fused_attention_packed"], kern[("packed", 257)],
               max(kern[("packed", 257)]["max_abs_err"], kern[("packed", 77)]["max_abs_err"])),
         entry("stream_scores_int8", "score_stream.cu", "score_stream.py:67",
-              dup["legacy"]["counts"]["stream_scores_int8"], kern[("score", 1024, False)],
+              dup["legacy"]["counts"]["stream_scores_int8"] + ts_launches["stream_scores_int8"],
+              kern[("score", 1024, False)],
               max(v["max_abs_err"] for key, v in kern.items() if key[0] == "score")),
         entry("blockpair_mask", "blockmax.cu", "blockmax.py:66",
               dup["certified"]["counts"]["blockpair_mask"], kern[("mask", CERT_ROWS)], 0.0),
@@ -1570,6 +1927,11 @@ def main() -> int:
         "train_remat_ms_per_step": ft["remat"]["ms_per_step"],
         "train_grad_cos": grad["cos_global"],
         "duplicates_ms": {k: v["ms"] for k, v in dup.items()},
+        "twostage": {"http_ms": ts_times, "rows": ts["rows"], "k": ts["k"],
+                     **{f"{d}_B{b}": {key: ts[(d, b)][key] for key in ("twostage_ms", "full_ms", "m", "split", "certified")}
+                        for d in ("float32", "bfloat16") for b in (1, 4)},
+                     "search_twostage_ms": ts["search_twostage_ms"], "search_ms": ts["search_ms"],
+                     "flat": ts["flat"]},
         "duplicates_direct_ms": {k: {p: v[p] for p in ("sketch_ms", "phase1_ms", "rescore_ms")}
                                  for k, v in dup.items() if k in ("certified", "approximate")}}))
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,16 @@ f32 or int8 rows:
 - tombstones are additive score penalties (0 live, NEG_INF removed), passed
   to the scan only once a removal happened;
 - ``from_store`` opens an ``EmbeddingStore`` directory the reference wrote;
-- the corpus sketch (``build_sketch``, kept fresh across appends) and the
-  three duplicate scans: the legacy batched self-search
+- the corpus sketch (``build_sketch``, kept fresh across appends), the
+  certified two-stage search that reads it (``search_twostage``, its
+  Rocchio batch ``search_twostage_feedback_batch`` and the tokens -> text
+  tower -> Rocchio -> two-stage serving path
+  ``search_twostage_fused_tokens``; ``index/twostage.py``), and the three
+  duplicate scans: the legacy batched self-search
   (``find_near_duplicates``), the certified sketch scan and the approximate
   candidate scan (``index/dupscan.py``).
 
-Not ported yet (they raise): bf16 rows, the two-stage sketch search,
-approximate top-k and device meshes.
+Not ported yet (they raise): bf16 rows, approximate top-k and device meshes.
 """
 
 from __future__ import annotations
@@ -126,8 +129,57 @@ def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None):
     return exact_topk(scores, k)
 
 
+def _pow2_at_least(n: int, floor: int) -> int:
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _selection_matrix(rows_list, batch: int) -> np.ndarray:
+    """[batch, m] global rows of each request's selection, -1 for none, m a
+    power of two from 8 (the reference's padding of the two-stage paths)."""
+    m = _pow2_at_least(max((len(r) for r in rows_list), default=0), 8)
+    sel = np.full((batch, m), -1, np.int64)
+    for b, r in enumerate(rows_list):
+        sel[b, : len(r)] = r
+    return sel
+
+
+def _fetch(*tensors):
+    """Device tensors -> numpy arrays through ONE device-to-host copy: the
+    tensors' bytes are concatenated on the device and split on the host."""
+    flat = [t.contiguous().reshape(-1) for t in tensors]
+    raw = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel() * f.element_size()
+        dtype = np.dtype(str(t.dtype).removeprefix("torch."))
+        out.append(raw[off : off + n].view(dtype).reshape(tuple(t.shape)))
+        off += n
+    return out
+
+
+def _fused_twostage(text_fn, ids, sel, slabs, norms, scales, pens, size, sk, k, m, share):
+    """The cold-query serving path (the reference's ``_fused_twostage_fn``,
+    one XLA program there): token ids -> text tower -> Rocchio -> certified
+    two-stage, queued on one stream with no host sync in between.
+    -> (scores, ids, all(certified), raw text embeddings), on the device."""
+    text = text_fn(ids).float()
+    q = _rocchio_queries(slabs, scales, norms, text, sel)
+    s, i, cert = twostage.twostage_topk_block(
+        slabs, sk.sketches, sk.resid, sk.basis, size, q, k, m, scales, pens, sk.ub_slack, share,
+    )
+    return s, i, cert.all(), text
+
+
 class VectorIndex:
     """Exact cosine top-k index resident in device memory (slab storage)."""
+
+    # consecutive two-stage certificate failures before the sketch is dropped
+    # (a flat-spectrum corpus would otherwise pay the bound pass AND the full
+    # scan on every query); re-armed by build_sketch
+    TWOSTAGE_DISABLE_AFTER = 8
 
     def __init__(
         self,
@@ -169,6 +221,11 @@ class VectorIndex:
         # the corpus sketch (index/twostage.py): None until build_sketch();
         # kept fresh across appends by _update_sketch_incremental
         self._sketch: Optional[twostage.SketchState] = None
+        self.twostage_certified = 0
+        self.twostage_fallbacks = 0
+        # consecutive certificate failures; at TWOSTAGE_DISABLE_AFTER the
+        # sketch is dropped until the next build
+        self._twostage_consec_failures = 0
         self.sketch_incremental = 0  # appends absorbed without a rebuild
         # build-time certifiability gate (build_sketch min_certifiable): last
         # estimate (None until a gated build ran) and the count of refusals
@@ -568,6 +625,7 @@ class VectorIndex:
             if self._size != size:
                 return  # a concurrent append won the race; this sketch is stale
             self._sketch = twostage.SketchState(basis, tuple(sketches), tuple(resid), size, slack)
+            self._twostage_consec_failures = 0  # re-arm the adaptive disable
 
     @property
     def sketch_fresh(self) -> bool:
@@ -578,6 +636,175 @@ class VectorIndex:
         sketch solely for the approximate duplicate scan)."""
         with self._lock:
             self._sketch = None
+
+    # -- the certified two-stage search (index/twostage.py) ----------------------
+
+    def _twostage_snapshot(self, k, candidates, selected_paths_list=None):
+        """One lock acquisition for everything the two-stage path needs:
+        ``(sk, k, c, slabs, norms, scales, pens, size, rows_list)``, with
+        ``sk=None`` whenever the fast path cannot serve (empty index, stale
+        or dropped sketch, or k so large that c candidates cannot hold it)."""
+        with self._lock:
+            sk = self._sketch
+            if self._size == 0 or sk is None or sk.built_rows != self._size:
+                return (None,) * 9
+            k = self._clamp_k(k)
+            rows_list = None
+            if selected_paths_list is not None:
+                rows_list = [[self._row[p] for p in sel if p in self._row] for sel in selected_paths_list]
+            slabs, norms, scales, pens = self._snapshot()
+            c = min(max(candidates, k), sum(s.shape[0] for s in slabs) - 1)
+            if c < k:
+                return (None,) * 9
+            return sk, k, c, slabs, norms, scales, pens, self._size, rows_list
+
+    @staticmethod
+    def _block_budget(sk, c: int, share: int, nb: int) -> int:
+        """Blocks to rescore: at least c, and a per-query floor for each of
+        the ``share`` distinct queries (f32 sketches c/4, bf16 sketches,
+        whose ub_slack eats into the margin, c/2: the reference's measured
+        floors), at most every block but one."""
+        per_q = c // 2 if sk.sketches[0].dtype == torch.bfloat16 else c // 4
+        return min(max(c, per_q * share), nb - 1)
+
+    def _twostage_run(self, sk, q, k, c, slabs, scales, pens, size, fallback, count_failures, n_real: int = 0):
+        """Run the bound + rescore and keep the certificate's books.
+        ``fallback`` answers when the certificate fails; ``count_failures=
+        False`` keeps by-construction failures out of the adaptive disable.
+        ``n_real`` counts the DISTINCT queries of a batch padded by repeating
+        a row (0: all), rounded up to a power of two: the union budget is
+        split over real queries, not pad copies."""
+        n_q = int(q.shape[0])
+        share = n_q if n_real <= 0 else min(n_real, n_q)
+        if share > 1:
+            share = 1 << (share - 1).bit_length()
+        if os.environ.get("ISX_TWOSTAGE_ROWS"):
+            # row candidates (the reference's A/B switch): an exact top-c
+            # selection over every bound
+            s, i, cert = twostage.twostage_topk(
+                slabs, sk.sketches, sk.resid, sk.basis, size, q, k, c, scales, pens, sk.ub_slack,
+            )
+        else:
+            nb = sum(s.shape[0] for s in slabs) // twostage.BLOCK
+            m = self._block_budget(sk, c, share, nb)
+            if m < 1 or m * twostage.BLOCK < k or (share > 1 and (m // share) * twostage.BLOCK < k):
+                # too small for block granularity to leave both a block not
+                # chosen and k rows to rescore (batched: each query is sure
+                # of only its m // share share): the full scan is as cheap
+                self.twostage_fallbacks += 1
+                return fallback()
+            s, i, cert = twostage.twostage_topk_block(
+                slabs, sk.sketches, sk.resid, sk.basis, size, q, k, m, scales, pens, sk.ub_slack, share,
+            )
+        s, i, ok = _fetch(s, i, cert.all())
+        if ok:
+            self.twostage_certified += 1
+            self._twostage_consec_failures = 0
+            return s, i.astype(np.int32)
+        self._note_failure(count_failures)
+        return fallback()
+
+    def _note_failure(self, count_failures: bool) -> None:
+        if count_failures:
+            self._note_twostage_failure()
+        else:
+            self.twostage_fallbacks += 1
+
+    def search_twostage(self, queries, k: int = 1000, candidates: int = twostage.DEFAULT_CANDIDATES,
+                        count_failures: bool = True):
+        """Certified exact top-k: the sketch-bound pass and an exact rescore,
+        falling back to the full scan whenever the certificate fails or the
+        sketch is stale or absent, so the answer is always ``search``'s.
+
+        Adaptive disable: after ``TWOSTAGE_DISABLE_AFTER`` consecutive
+        certificate failures the sketch is dropped (a flat corpus fails on
+        every query and would pay both passes); ``build_sketch`` re-arms it.
+        ``count_failures=False`` exempts a call from that count."""
+        q = torch.as_tensor(queries, dtype=torch.float32)
+        q = self._as_queries(q, q.numel() // self.dim)
+        sk, k2, c, slabs, _, scales, pens, size, _ = self._twostage_snapshot(k, candidates)
+        if sk is None:
+            self.twostage_fallbacks += 1
+            return self.search(q, k)
+        return self._twostage_run(
+            sk, q, k2, c, slabs, scales, pens, size, lambda: self.search(q, k), count_failures,
+        )
+
+    def _note_twostage_failure(self) -> None:
+        self.twostage_fallbacks += 1
+        self._twostage_consec_failures += 1
+        if self._twostage_consec_failures >= self.TWOSTAGE_DISABLE_AFTER:
+            log.warning(
+                "two-stage certificate failed %d consecutive times (corpus spectrum too flat); "
+                "disabling the sketch until the next rebuild", self._twostage_consec_failures,
+            )
+            with self._lock:
+                self._sketch = None
+
+    def search_twostage_feedback_batch(self, text_embeddings, selected_paths_list, k: int = 1000,
+                                       candidates: int = twostage.DEFAULT_CANDIDATES,
+                                       count_failures: bool = True):
+        """The certified two-stage counterpart of ``search_with_feedback_batch``:
+        the Rocchio query is one more query vector. The batch is padded to a
+        power of two from 8 by REPEATING query 0 with no selection (a zero
+        row would fail the certificate by construction), as the reference
+        pads it. Falls back to the full-scan feedback batch when the sketch
+        is absent or stale or the certificate fails."""
+        B = len(selected_paths_list)
+        text = self._as_queries(text_embeddings, B)
+        sk, k2, c, slabs, norms, scales, pens, size, rows_list = self._twostage_snapshot(
+            k, candidates, selected_paths_list
+        )
+        if sk is None:
+            self.twostage_fallbacks += 1
+            return self.search_with_feedback_batch(text, selected_paths_list, k)
+        bpad = _pow2_at_least(B, 8)
+        sel = torch.from_numpy(_selection_matrix(rows_list, bpad)).to(self.device)
+        text_p = torch.cat([text, text[:1].expand(bpad - B, self.dim)]) if bpad > B else text
+        q = _rocchio_queries(slabs, scales, norms, text_p, sel)
+        got = self._twostage_run(sk, q, k2, c, slabs, scales, pens, size, lambda: None, count_failures, n_real=B)
+        if got is None:  # the certificate failed: the full-scan feedback batch
+            return self.search_with_feedback_batch(text, selected_paths_list, k)
+        return got[0][:B], got[1][:B]
+
+    def search_twostage_fused_tokens(self, text_fn, ids, selected_paths_list, k: int = 1000,
+                                     candidates: int = twostage.DEFAULT_CANDIDATES,
+                                     count_failures: bool = True):
+        """The whole cold-query path: token ids [Bpad, L] (numpy) -> the text
+        tower ``text_fn(ids_tensor) -> [Bpad, D]`` -> Rocchio -> certified
+        two-stage, queued without a host sync, and ONE device-to-host copy
+        for the certificate, scores, ids and text embeddings together.
+        ``ids`` is padded to a power of two (from 1) by REPEATING row 0.
+
+        -> ``(scores[:B], ids[:B], text[:B])`` when certified;
+        ``(None, None, text[:B])`` when the certificate failed (the caller
+        runs the full scan on those embeddings); ``(None, None, None)`` when
+        this path cannot serve (no or stale sketch, corpus too small for
+        block granularity)."""
+        B = len(selected_paths_list)
+        sk, k2, c, slabs, norms, scales, pens, size, rows_list = self._twostage_snapshot(
+            k, candidates, selected_paths_list
+        )
+        if sk is None:
+            return None, None, None
+        bpad = int(ids.shape[0])
+        share = 1 << (B - 1).bit_length() if B > 1 else 1
+        nb = sum(s.shape[0] for s in slabs) // twostage.BLOCK
+        m = self._block_budget(sk, c, share, nb)
+        # true division here, as the reference's fused guard has it
+        if m < 1 or m * twostage.BLOCK < k2 or (share > 1 and (m / share) * twostage.BLOCK < k2):
+            self.twostage_fallbacks += 1
+            return None, None, None
+        sel = torch.from_numpy(_selection_matrix(rows_list, bpad)).to(self.device)
+        ids_dev = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
+        s, i, cert, text = _fused_twostage(text_fn, ids_dev, sel, slabs, norms, scales, pens, size, sk, k2, m, share)
+        ok, s_np, i_np, text_np = _fetch(cert, s[:B], i[:B], text[:B])
+        if ok:
+            self.twostage_certified += 1
+            self._twostage_consec_failures = 0
+            return s_np, i_np.astype(np.int32), text_np
+        self._note_failure(count_failures)
+        return None, None, text_np
 
     # -- duplicate scans -----------------------------------------------------------
 

@@ -2,7 +2,8 @@
 
 The contract of ``image_search_tpu/ingest/decode.py``: a thread pool turns
 paths into uint8 RGB HWC arrays, and an image that fails to decode is logged
-and skipped. Decoding uses PIL when it is importable (with the same JPEG
+and skipped; :func:`decode_image_bytes` decodes an uploaded query image,
+refusing one that declares more than ``MAX_QUERY_PIXELS``. Decoding uses PIL when it is importable (with the same JPEG
 draft downscale as the reference). Uncompressed 24-bit BMP -- a format the
 scanner accepts -- also has a small numpy reader, so a machine without PIL
 can still scan such a corpus; :func:`write_bmp24` writes one.
@@ -10,6 +11,7 @@ can still scan such a corpus; :func:`write_bmp24` writes one.
 
 from __future__ import annotations
 
+import io
 import logging
 import struct
 from concurrent.futures import ThreadPoolExecutor
@@ -76,6 +78,41 @@ def decode_image(path: str) -> Optional[np.ndarray]:
             return np.asarray(im.convert("RGB"), dtype=np.uint8)
     except Exception as err:  # decoder errors are data-dependent; never fatal
         log.error("Failed to open image %s: %s", path, err)
+        return None
+
+
+# decoded-pixel cap for UNTRUSTED uploaded bytes: a small crafted file can
+# declare enormous dimensions (a 20k x 20k PNG fits in the 16 MB request cap
+# and decodes to 1.2 GB); 64M pixels is far above any real photo
+MAX_QUERY_PIXELS = 64_000_000
+
+
+def decode_image_bytes(data: bytes) -> Optional[np.ndarray]:
+    """Decode in-memory image bytes (an uploaded query image) to uint8 RGB
+    HWC; None on failure or when the declared size exceeds
+    ``MAX_QUERY_PIXELS``, checked from the header before any pixel is
+    decoded. The reference's copy, without its native decoder."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    try:
+        if Image is None:
+            arr = read_bmp24(data)  # reads within ``data``: no decode bomb
+            if arr.shape[0] * arr.shape[1] > MAX_QUERY_PIXELS:
+                log.warning("rejecting %dx%d query image (> %d pixels)", arr.shape[1], arr.shape[0], MAX_QUERY_PIXELS)
+                return None
+            return arr
+        with Image.open(io.BytesIO(data)) as im:
+            w, h = im.size
+            if w * h > MAX_QUERY_PIXELS:
+                log.warning("rejecting %dx%d query image (> %d pixels)", w, h, MAX_QUERY_PIXELS)
+                return None
+            if im.format == "JPEG":
+                im.draft("RGB", (_DRAFT_TARGET, _DRAFT_TARGET))
+            return np.asarray(im.convert("RGB"), dtype=np.uint8)
+    except Exception as err:  # decoder errors are data-dependent; never fatal
+        log.error("Failed to decode %d uploaded bytes: %s", len(data), err)
         return None
 
 

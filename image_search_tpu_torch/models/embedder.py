@@ -25,8 +25,8 @@ from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
 MAX_DEVICE_BATCH = 160
 
 
-def _bucket_batch(n: int) -> int:
-    b = 8
+def _bucket_batch(n: int, minimum: int = 8) -> int:
+    b = minimum
     while b < n and b < 128:
         b *= 2
     if n <= b:
@@ -67,9 +67,11 @@ class ClipEmbedder:
         out = self.embed_images_async(images)
         return out[: len(images)].float().cpu().numpy()
 
-    def embed_images_async(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+    def embed_images_async(self, images: Sequence[np.ndarray], min_bucket: int = 8) -> torch.Tensor:
         """Dispatch without waiting; returns the (bucket-padded) device tensor
-        of raw embeddings in the compute dtype."""
+        of raw embeddings in the compute dtype. ``min_bucket=1`` serves a
+        query image (``/search_image``): one photo runs at B=1, not padded
+        to the ingest floor of 8."""
         if len(images) > MAX_DEVICE_BATCH:
             parts = [
                 self._embed_one_batch(images[lo : lo + MAX_DEVICE_BATCH])[
@@ -78,12 +80,12 @@ class ClipEmbedder:
                 for lo in range(0, len(images), MAX_DEVICE_BATCH)
             ]
             return torch.cat(parts, dim=0)
-        return self._embed_one_batch(images)
+        return self._embed_one_batch(images, min_bucket)
 
-    def _embed_one_batch(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+    def _embed_one_batch(self, images: Sequence[np.ndarray], min_bucket: int = 8) -> torch.Tensor:
         u8, A_h, A_w = pack_batch(images, size=self.cfg.vision.image_size, mode=self.preprocess_mode)
         n = len(images)
-        B = _bucket_batch(n)
+        B = _bucket_batch(n, min_bucket)
         if B > n:  # pad batch; padded rows are discarded by the caller
             pad = B - n
             u8 = np.concatenate([u8, np.zeros((pad,) + u8.shape[1:], u8.dtype)])
@@ -98,6 +100,13 @@ class ClipEmbedder:
 
     # -- text path -------------------------------------------------------------
 
+    def encode_text_fn(self, ids: torch.Tensor) -> torch.Tensor:
+        """The text tower on token ids already on the device: [B, L] ->
+        raw [B, projection_dim], in the compute dtype (the fused two-stage
+        serving path, ``VectorIndex.search_twostage_fused_tokens``)."""
+        with torch.inference_mode():
+            return encode_text(self.model, ids)
+
     def embed_texts_device(self, texts: Sequence[str]) -> torch.Tensor:
         """Strings -> raw [N, projection_dim] embeddings left on the device."""
         if self.tokenizer is None:
@@ -108,9 +117,7 @@ class ClipEmbedder:
         if B > n:
             pad_row = np.full((B - n, ids.shape[1]), self.tokenizer.eos_id, ids.dtype)
             ids = np.concatenate([ids, pad_row])
-        with torch.inference_mode():
-            ids_dev = torch.from_numpy(ids.astype(np.int64)).to(self.device)
-            return encode_text(self.model, ids_dev)[:n]
+        return self.encode_text_fn(torch.from_numpy(ids.astype(np.int64)).to(self.device))[:n]
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         """Strings -> raw [N, projection_dim] f32 (tokenize + text tower)."""

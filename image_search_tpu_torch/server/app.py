@@ -12,10 +12,15 @@ app.py``), with byte-identical bodies for the same engine results:
   progress while the scan runs and 200 with the groups when it is done. One
   scan runs at a time; an async request at another threshold while a job
   runs gets 409;
+- ``POST /search_image[?k=N][&ref=media/...]`` -- raw image bytes as the
+  query (``ref`` repeats, marked results for Rocchio feedback), the same
+  response as ``/search``; 400 on an empty body, a bad ``k`` or bytes that
+  do not decode;
+- ``GET /metrics`` -- the counters, gauges and latencies of
+  ``utils.metrics.global_metrics``, the ``corpus_size`` gauge and the model;
 - ``GET /health`` and ``GET /media/<path>`` (the photo directory).
 
-``/search_image``, ``/remove``, ``/metrics``, the web client and
-micro-batching are not ported yet. Run it with the reference's flags::
+``/remove``, the web client and micro-batching are not ported yet. Run it with the reference's flags::
 
     python -m image_search_tpu_torch.server.app --media-dir ~/Pictures \\
         --index-dir ./index --index-quantize int8 [--device cuda]
@@ -98,6 +103,11 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
             if path == "/duplicates":
                 query = urllib.parse.parse_qs(url.query, keep_blank_values=True)
                 return self._duplicates({k: v[0] for k, v in query.items()})
+            if path == "/metrics":
+                snap = global_metrics.snapshot()
+                snap["gauges"]["corpus_size"] = float(len(engine.index))
+                snap["model"] = engine.cfg.name
+                return self._json(200, snap)
             if path == "/health":
                 return self._json(
                     200, {"status": "ok", "model": engine.cfg.name, "corpus": len(engine.index)}
@@ -107,12 +117,14 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
             self._json(404, {"error": "not found"})
 
         def do_POST(self):
-            path = urllib.parse.urlsplit(self.path).path
+            url = urllib.parse.urlsplit(self.path)
             n = int(self.headers.get("Content-Length") or 0)
             if n > MAX_BODY:
                 return self._json(413, {"error": "body too large"})
             body = self.rfile.read(n)
-            if path != "/search":
+            if url.path == "/search_image":
+                return self._search_image(body, urllib.parse.parse_qs(url.query, keep_blank_values=True))
+            if url.path != "/search":
                 return self._json(404, {"error": "not found"})
             try:
                 params = SearchParams.from_json(json.loads(body))
@@ -122,6 +134,22 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
                 images = engine.search(params.q, params.referenced_images)
             except Exception:
                 log.exception("search failed")
+                return self._send(500, b"")
+            self._send(200, engine.render_images_json(images))
+
+        def _search_image(self, body: bytes, query: dict):
+            if not body:
+                return self._json(400, {"error": "empty body"})
+            try:
+                k = int(query.get("k", ["0"])[0]) or None
+            except ValueError:
+                return self._json(400, {"error": "bad k"})
+            try:
+                images = engine.search_by_image(body, k, query.get("ref", []))
+            except ValueError as err:
+                return self._json(400, {"error": str(err)})
+            except Exception:
+                log.exception("image search failed")
                 return self._send(500, b"")
             self._send(200, engine.render_images_json(images))
 

@@ -1,16 +1,21 @@
 """SearchEngine: model + tokenizer + index + scan pipeline on one device.
 
-Port of ``image_search_tpu/server/engine.py::SearchEngine`` for the main
-path: load the checkpoint (or seeded random demo weights), scan a media
-directory into the index, answer text searches with optional Rocchio
-feedback through one batched program (the reference's non-two-stage branch),
-rendering the reference's wire format byte for byte, and find near-duplicate
-photo groups by the reference's three routes (``find_duplicate_groups``).
+Port of ``image_search_tpu/server/engine.py::SearchEngine``: load the
+checkpoint (or seeded random demo weights), scan a media directory into the
+index, answer text searches with optional Rocchio feedback through one
+batched program, and query-by-image searches (``search_by_image``), rendering
+the reference's wire format byte for byte, and find near-duplicate photo
+groups by the reference's three routes (``find_duplicate_groups``). With
+``--search-twostage`` the index keeps a corpus sketch (built at startup for
+restored rows and after every scan that embedded rows) and searches take the
+certified two-stage path: an all-cold batch as one queued tokens -> text
+tower -> Rocchio -> two-stage run, other batches through the two-stage
+feedback batch; the answers are the full scan's either way.
 
 The engine runs on an explicit device (default ``cuda``). Flags for what is
-not ported yet raise at construction: the two-stage and approximate searches,
-meshes, bf16 index rows, micro-batching, the thumbnail cache, pruning on
-scan, ``--from-hf`` and the profiler.
+not ported yet raise at construction: the approximate search, meshes, bf16
+index rows, micro-batching, the thumbnail cache, pruning on scan,
+``--from-hf`` and the profiler.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from image_search_tpu_torch import check_precision
 from image_search_tpu_torch.config import get_config
 from image_search_tpu_torch.index.index import NEG_INF, EmbeddingStore, VectorIndex
+from image_search_tpu_torch.ingest.decode import decode_image_bytes
 from image_search_tpu_torch.ingest.pipeline import ScanStats, scan_directory
 from image_search_tpu_torch.models.convert import build_model, init_params, load_checkpoint, params_from_jax
 from image_search_tpu_torch.models.embedder import ClipEmbedder
@@ -44,8 +50,6 @@ DEMO_SEED = 0
 def unsupported_flags(args) -> List[str]:
     """Reference flags this port cannot serve yet, as they were given."""
     out = []
-    if args.search_twostage:
-        out.append("--search-twostage")
     if args.search_approx:
         out.append("--search-approx")
     if args.mesh_data is not None or args.mesh_model != 1:
@@ -93,6 +97,8 @@ class SearchEngine:
             self.cfg.projection_dim, device=self.device, store=store,
             quantize=args.index_quantize, capacity=args.index_capacity,
         )
+        if args.search_twostage and len(self.index):
+            self._build_sketch()  # restored rows: the certified path from query 1
         log.info(
             "engine ready: model=%s dim=%d corpus=%d device=%s",
             self.cfg.name, self.cfg.projection_dim, len(self.index), self.device,
@@ -175,35 +181,145 @@ class SearchEngine:
 
     # -- operations -------------------------------------------------------------
 
+    def _build_sketch(self) -> None:
+        self.index.build_sketch(
+            dtype=self.args.sketch_dtype, min_certifiable=self.args.twostage_min_certifiable,
+            est_k=self.args.k,
+        )
+
+    def _publish_twostage_gauges(self) -> None:
+        global_metrics.gauge("twostage_certified_total", float(self.index.twostage_certified))
+        global_metrics.gauge("twostage_fallback_total", float(self.index.twostage_fallbacks))
+        global_metrics.gauge("twostage_sketch_active", float(self.index.sketch_fresh))
+        global_metrics.gauge("twostage_sketch_incremental_total", float(self.index.sketch_incremental))
+        global_metrics.gauge("twostage_gate_skips_total", float(self.index.twostage_gate_skips))
+        if self.index.sketch_certifiable_est is not None:
+            global_metrics.gauge("twostage_certifiable_est", round(self.index.sketch_certifiable_est, 4))
+
     def search(self, query: str, referenced_images: Sequence[str] = (), k: Optional[int] = None):
         """The ``web_search_text`` flow (search.rs:20-102): a batch of one."""
         return self.search_many([query], [referenced_images], k or self.args.k)[0]
 
+    def search_by_image(self, image_bytes: bytes, k: Optional[int] = None, referenced_images: Sequence[str] = ()):
+        """Query-by-image (``POST /search_image``): decode the uploaded bytes,
+        embed them with the vision tower at B=1, and search with that
+        embedding in the text embedding's role (two-stage when on, Rocchio
+        feedback with ``referenced_images``). ValueError on undecodable
+        bytes."""
+        k = k or self.args.k
+        arr = decode_image_bytes(image_bytes)
+        if arr is None:
+            raise ValueError("could not decode query image")
+        with global_metrics.timer("image_embed"):
+            emb = self.embedder.embed_images_async([arr], min_bucket=1)[:1]
+        selected = [p for p in (self._resolve_selection(m) for m in referenced_images) if p is not None]
+        use_twostage = self.args.search_twostage and self.index.sketch_fresh
+        with global_metrics.timer("index_search"):
+            if selected and use_twostage:
+                scores, idx = self.index.search_twostage_feedback_batch(emb, [selected], k)
+                self._publish_twostage_gauges()
+            elif selected:
+                scores, idx = self.index.search_with_feedback(emb, selected, k)
+            elif use_twostage:
+                scores, idx = self.index.search_twostage(emb, k)
+                self._publish_twostage_gauges()
+            else:
+                scores, idx = self.index.search(emb, k)
+        global_metrics.inc("searches")
+        global_metrics.inc("image_searches")
+        if selected:
+            global_metrics.inc("searches_with_feedback")
+        return self._format_results(scores, idx)
+
     def search_many(self, queries, selections=None, k: Optional[int] = None):
         """B searches -- plain and Rocchio feedback alike -- as one text-tower
-        batch and one index pass. Returns result lists in request order."""
+        batch and one index pass. Returns result lists in request order.
+
+        With ``--search-twostage`` and a fresh sketch, a batch of at most
+        ``--twostage-max-batch`` queries takes the two-stage path: when no
+        query is in the text cache, the fused tokens -> tower -> Rocchio ->
+        two-stage run (``_search_many_fused``); otherwise the two-stage
+        feedback batch on the cached and new embeddings. (The reference's
+        other guards, no approximate search and no mesh, hold here always:
+        both raise at construction.)"""
         k = k or self.args.k
         queries = list(queries)
         sel_lists = [
             [p for p in (self._resolve_selection(m) for m in sel) if p is not None]
             for sel in (selections or [()] * len(queries))
         ]
+        n_feedback = sum(1 for s in sel_lists if s)
         local = {}
         for q in queries:
             hit = self._cache_get(q)
             if hit is not None:
                 local[q] = hit
+        use_twostage = (
+            self.args.search_twostage and self.index.sketch_fresh
+            and len(queries) <= self.args.twostage_max_batch
+        )
+        if not local and use_twostage and self.embedder.tokenizer is not None:
+            out = self._search_many_fused(queries, sel_lists, k)
+            if out is not None:
+                self._inc_search_metrics(len(queries), n_feedback)
+                return out
+        hits = sum(1 for q in queries if q in local)
         misses = list(dict.fromkeys(q for q in queries if q not in local))
         if misses:
-            embs = self.embedder.embed_texts_device(misses)  # stays on the device
+            with global_metrics.timer("text_embed"):
+                embs = self.embedder.embed_texts_device(misses)  # stays on the device
             for b, q in enumerate(misses):
                 local[q] = embs[b]
                 self._cache_put(q, embs[b])
+        global_metrics.inc("text_embed_cache_hits", hits)
         q_mat = torch.stack([local[q].float() for q in queries])
-        # the batched feedback program even for all-plain batches: an empty
-        # selection IS the plain search, bitwise
-        scores, idx = self.index.search_with_feedback_batch(q_mat, sel_lists, k)
+        with global_metrics.timer("index_search"):
+            if use_twostage:
+                scores, idx = self.index.search_twostage_feedback_batch(q_mat, sel_lists, k)
+                self._publish_twostage_gauges()
+            else:
+                # the batched feedback program even for all-plain batches: an
+                # empty selection IS the plain search, bitwise
+                scores, idx = self.index.search_with_feedback_batch(q_mat, sel_lists, k)
+        self._inc_search_metrics(len(queries), n_feedback)
         return [self._format_results(scores[b], idx[b]) for b in range(len(queries))]
+
+    def _inc_search_metrics(self, n_queries: int, n_feedback: int) -> None:
+        global_metrics.inc("searches", n_queries)
+        global_metrics.inc("searches_with_feedback", n_feedback)
+        if n_queries > 1:  # only true coalescing counts
+            global_metrics.inc("batched_searches", n_queries)
+            if n_feedback:
+                global_metrics.inc("batched_feedback_searches", n_feedback)
+
+    def _search_many_fused(self, queries, sel_lists, k):
+        """The all-cold two-stage run (``VectorIndex.search_twostage_fused_tokens``):
+        tokenize on the host, pad by REPEATING row 0 to a power of two from 1
+        (a pad row of EOS would be another query and take a share of the
+        union budget), fill the text cache from the run. A failed
+        certificate runs the full-scan feedback batch on the embeddings the
+        run made; the tower never runs twice. None when the path cannot
+        serve (the caller's path answers)."""
+        B = len(queries)
+        ids = self.embedder.tokenizer(list(queries))
+        bpad = 1 << (B - 1).bit_length() if B > 1 else 1
+        if bpad > B:
+            ids = np.concatenate([ids, np.repeat(ids[:1], bpad - B, axis=0)])
+        with global_metrics.timer("index_search"):
+            scores, idx, text = self.index.search_twostage_fused_tokens(
+                self.embedder.encode_text_fn, ids, sel_lists, k
+            )
+        if text is None:
+            return None
+        text_dev = torch.from_numpy(text).to(self.device)
+        for b, q in enumerate(queries):
+            self._cache_put(q, text_dev[b])
+        if scores is None:
+            with global_metrics.timer("index_search"):
+                scores, idx = self.index.search_with_feedback_batch(text, sel_lists, k)
+        self._publish_twostage_gauges()
+        global_metrics.inc("fused_searches", B)
+        return [self._format_results(scores[b], idx[b]) for b in range(B)]
 
     def _wire_row(self, row: int) -> dict:
         """Memoized ``{"id", "image_path"}`` for an index row (id = urlencoded
@@ -263,12 +379,23 @@ class SearchEngine:
 
     def scan(self) -> ScanStats:
         """The ``GET /scan`` ingest (search.rs:104-126). Paths the store
-        marks excluded (removed by the user) are not re-embedded."""
-        return scan_directory(
-            self.embedder, self.index, self.media_dir,
-            chunk_size=self.args.chunk_size, decode_workers=self.args.decode_workers,
-            skip_paths=self._excluded,
-        )
+        marks excluded (removed by the user) are not re-embedded. With
+        ``--search-twostage`` a scan that embedded rows rebuilds the sketch."""
+        with global_metrics.timer("scan"):
+            stats = scan_directory(
+                self.embedder, self.index, self.media_dir,
+                chunk_size=self.args.chunk_size, decode_workers=self.args.decode_workers,
+                skip_paths=self._excluded,
+            )
+        if self.args.search_twostage and stats.embedded:
+            with global_metrics.timer("sketch_build"):
+                self._build_sketch()
+        global_metrics.inc("scans")
+        global_metrics.inc("images_embedded", stats.embedded)
+        global_metrics.inc("decode_failures", stats.decode_failures)
+        global_metrics.gauge("corpus_size", float(len(self.index)))
+        global_metrics.gauge("last_scan_images_per_sec", round(stats.images_per_sec, 2))
+        return stats
 
     # above this corpus size the legacy duplicate scan would default to an
     # approximate top-k, and a flat corpus takes the approximate sketch scan

@@ -111,3 +111,20 @@ def test_route_switches_select_their_route_and_are_restored(monkeypatch):
                 assert attention_route(257, 16, False) == route
         assert dict(os.environ) == before
         assert isinstance(getattr(attention, entry).launches, int)  # the wrapper the phase counts
+
+
+def test_twostage_phase_runs_after_the_server_phases():
+    """``main`` runs the two-stage phase (served over HTTP, then direct at 10M
+    rows) after the server phases, and its launches reach the kernels line."""
+    import ast
+
+    with open(SCRIPT) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    phases = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and getattr(n.func, "id", "").startswith("phase_")]
+    assert "phase_twostage" in phases
+    assert phases.index("phase_twostage") > phases.index("phase_server_routes")
+    mod = _load()
+    assert mod.TWOSTAGE_ROWS == 10_000_000 and mod.TWOSTAGE_SLAB % 4096 == 0
+    assert "ts_launches" in ast.unparse(main)

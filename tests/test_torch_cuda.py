@@ -867,3 +867,119 @@ def test_softmax_division_is_the_ieee_quotient(dev):
                                                      _build.stream_handle(dev)), "division probe")
     torch.cuda.synchronize()
     assert torch.equal(out, x / y)
+
+
+
+# ---- the certified two-stage search on the card ----
+
+
+def _concentrated(g, dev, n, d=768, rank=64):
+    mix = torch.randn(rank, d, generator=g, device=dev)
+    x = torch.randn(n, rank, generator=g, device=dev) @ mix + 0.02 * torch.randn(n, d, generator=g, device=dev)
+    return F.normalize(x, dim=-1), mix
+
+
+@pytest.mark.parametrize("with_pens", [False, True])
+def test_twostage_rescore_is_bitwise_the_full_scan(dev, with_pens):
+    """B2 over 2048 gathered blocks of a 262,144-row slab (the block path's
+    rescore) gives the full scan's scores of those rows bit for bit."""
+    from image_search_tpu_torch.index import twostage
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    n, d = 262_144, 768
+    rows, scales = quantize_rows_int8(F.normalize(torch.randn(n, d, generator=g, device=dev), dim=-1))
+    pens = None
+    if with_pens:
+        pens = torch.zeros(n, device=dev)
+        pens[torch.randint(0, n, (500,), generator=g, device=dev)] = NEG_INF
+    qi, qs = quantize_rows_int8(F.normalize(torch.randn(4, d, generator=g, device=dev), dim=-1))
+    full = stream_scores_int8(rows, qi, qs, scales, n, pens)
+    blocks = torch.randperm(n // twostage.BLOCK, generator=g, device=dev)[:2048]
+    gid = (blocks[:, None] * twostage.BLOCK + torch.arange(twostage.BLOCK, device=dev)).reshape(-1)
+    g_rows = rows.view(-1, twostage.BLOCK, d)[blocks].reshape(-1, d)
+    g_pens = None if pens is None else pens[gid]
+    got = stream_scores_int8(g_rows, qi, qs, scales[gid], gid.numel(), g_pens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full[:, gid])
+
+
+def test_bf16_sketch_bound_holds_on_every_row(dev):
+    """bf16 sketches on the card: the stage-1 bound (bf16 q_s, both operands
+    upcast) is >= the full scan's exact score of every row."""
+    from image_search_tpu_torch.index import twostage
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = F.normalize(torch.randn(65_536, 768, generator=g, device=dev), dim=-1)
+    rows, scales = quantize_rows_int8(x)
+    basis = torch.from_numpy(twostage.fit_basis(x[::8].cpu().numpy(), 64)).to(dev)
+    sk, resid, slack = twostage.sketch_slab(rows, scales, basis, to_bf16=True)
+    q = torch.cat([torch.randn(4, 768, generator=g, device=dev), x[:4]])
+    qt, qi, qs = twostage._exact_query_vector(q, True)
+    q_s, q_res, infl = twostage._query_bound_terms(qt, basis, slack)
+    ub = twostage._upper_bounds(q_s, q_res, infl, sk, resid, None, 0, rows.shape[0])
+    exact = stream_scores_int8(rows, qi, qs, scales, rows.shape[0])
+    assert sk.dtype == torch.bfloat16 and float(slack) > 0
+    assert bool((ub >= exact).all())
+
+
+def test_search_twostage_equals_search_on_a_million_rows(dev):
+    """VectorIndex on the card, 2^20 concentrated int8 rows: search_twostage
+    certifies and equals search (scores bitwise), f32 and bf16 sketches,
+    B = 1 and 4, plain and with feedback."""
+    import numpy as np
+
+    from image_search_tpu_torch.index.index import VectorIndex
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    n = 1 << 20
+    x, mix = _concentrated(g, dev, n + 4)
+    index = VectorIndex(768, device=dev, quantize="int8")
+    for lo in range(0, n, 1 << 18):
+        index.add([f"p{i}" for i in range(lo, lo + (1 << 18))], x[lo : lo + (1 << 18)].cpu().numpy())
+    q = x[n:].cpu().numpy()
+    for dtype in ("float32", "bfloat16"):
+        index.build_sketch(dtype=dtype)
+        for B in (1, 4):
+            c0 = index.twostage_certified
+            got, want = index.search_twostage(q[:B], 1000), index.search(q[:B], 1000)
+            assert index.twostage_certified == c0 + 1
+            np.testing.assert_array_equal(got[0], want[0])
+            distinct = np.diff(want[0], axis=1, prepend=np.inf, append=-np.inf)
+            distinct = (distinct[:, :-1] != 0) & (distinct[:, 1:] != 0)
+            np.testing.assert_array_equal(got[1][distinct], want[1][distinct])
+        sels = [["p3", "p77"], [], ["p1000"], []]
+        got = index.search_twostage_feedback_batch(q, sels, 1000)
+        want = index.search_with_feedback_batch(q, sels, 1000)
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_fused_twostage_path_never_syncs_with_the_host(dev):
+    """tokens -> text tower -> Rocchio -> two-stage is queued without a host
+    sync (a synchronising call raises under sync debug mode "error"); the
+    one device-to-host copy comes after, and the answer is the full scan's."""
+    import numpy as np
+
+    from image_search_tpu_torch.index.index import VectorIndex, _fetch, _fused_twostage
+
+    g = torch.Generator(device=dev).manual_seed(34)
+    n = 1 << 16
+    x, _ = _concentrated(g, dev, n)
+    index = VectorIndex(768, device=dev, quantize="int8")
+    index.add([f"p{i}" for i in range(n)], x.cpu().numpy())
+    index.build_sketch()
+    table = torch.randn(1000, 768, generator=g, device=dev)
+    text_fn = lambda ids: table[ids].mean(dim=1)  # a stand-in tower: ids -> [B, D]
+    ids = torch.randint(0, 1000, (2, 77), generator=g, device=dev)
+    sel = torch.tensor([[5, 9, -1, -1, -1, -1, -1, -1], [-1] * 8], device=dev)
+    sk, k, c, slabs, norms, scales, pens, size, _ = index._twostage_snapshot(100, 4096)
+    m = index._block_budget(sk, c, 2, sum(s.shape[0] for s in slabs) // 128)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, i, cert, text = _fused_twostage(text_fn, ids, sel, slabs, norms, scales, pens, size, sk, k, m, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ok, s_np, i_np, text_np = _fetch(cert, s, i, text)
+    want = index.search_with_feedback_batch(text_np, [["p5", "p9"], []], 100)
+    assert ok
+    np.testing.assert_array_equal(s_np, want[0])

@@ -166,7 +166,40 @@ def _copy_eval():
                 fn(*bad)
 
 
-@pytest.mark.parametrize("module", ["config", "tokenizer", "store", "args_and_wire", "walk", "eval"])
+def _png_header(w: int, h: int) -> bytes:
+    """A PNG whose header declares w x h RGB pixels and which holds none."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)) + chunk(b"IEND", b"")
+
+
+def _copy_decode():
+    import io
+
+    from PIL import Image
+
+    from image_search_tpu.ingest import decode as ref
+    from image_search_tpu_torch.ingest import decode as port
+
+    assert port.MAX_QUERY_PIXELS == ref.MAX_QUERY_PIXELS
+    rng = np.random.default_rng(2)
+    arr = rng.integers(0, 256, size=(37, 53, 3), dtype=np.uint8)
+    for fmt, img in (("PNG", Image.fromarray(arr)), ("BMP", Image.fromarray(arr)),
+                     ("PNG", Image.fromarray(arr[:, :, 0])), ("PNG", Image.fromarray(arr).convert("RGBA"))):
+        buf = io.BytesIO()
+        img.save(buf, format=fmt)
+        got = port.decode_image_bytes(buf.getvalue())
+        np.testing.assert_array_equal(got, ref.decode_image_bytes(buf.getvalue()))
+        assert got.shape == arr.shape and got.dtype == np.uint8
+    for bad in (b"", b"not an image", _png_header(8_001, 8_000), _png_header(8_000, 8_000)[:40]):
+        assert port.decode_image_bytes(bad) is None and ref.decode_image_bytes(bad) is None
+
+
+@pytest.mark.parametrize("module", ["config", "tokenizer", "store", "args_and_wire", "walk", "eval", "decode"])
 def test_copies_behave_as_the_jax_packages(module, tmp_path):
     fn = globals()["_copy_" + module]
     fn(tmp_path) if fn.__code__.co_argcount else fn()

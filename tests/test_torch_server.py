@@ -27,10 +27,13 @@ from image_search_tpu.config import tiny_test_config
 from image_search_tpu.models import init_params as jax_init_params
 from image_search_tpu.models.convert import save_checkpoint
 from image_search_tpu.server.args import ServerArgs as RefArgs
+from image_search_tpu.server import engine as ref_engine_mod
 from image_search_tpu.server.engine import SearchEngine as RefEngine
+from image_search_tpu.utils.metrics import global_metrics as ref_metrics
 from image_search_tpu_torch.ingest.decode import DecodePool, decode_image, read_bmp24, write_bmp24
 from image_search_tpu_torch.server.app import make_server, parse_args
 from image_search_tpu_torch.server.engine import SearchEngine, ServerArgs
+from image_search_tpu_torch.utils.metrics import global_metrics
 
 SIZES = [(28, 28), (28, 45), (60, 28), (28, 33), (28, 28), (90, 28), (28, 70), (41, 28)]
 
@@ -158,7 +161,6 @@ def test_rescan_is_idempotent(servers, scanned):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--search-twostage"],
         ["--search-approx"],
         ["--mesh-data", "2"],
         ["--mesh-model", "2"],
@@ -226,6 +228,23 @@ def test_decode_pool_skips_failures(tmp_path):
     finally:
         pool.close()
     assert kept == [good] and images[0].shape == (4, 6, 3)
+
+
+@pytest.mark.parametrize("n_marked", [0, 2])
+def test_search_image_without_twostage_matches_reference(servers, scanned, n_marked):
+    """POST /search_image on the full-scan engines: the plain search, and
+    with ?ref= the Rocchio feedback search on the image embedding."""
+    ref, port, base = servers
+    with open(sorted(p for p in port.index.paths if p.endswith("photo_1.png"))[0], "rb") as f:
+        data = f.read()
+    refs = [d["image_path"] for d in ref.search("q")[1 : 1 + n_marked]]
+    want = ref.search_by_image(data, None, refs)
+    qs = urllib.parse.urlencode([("ref", r) for r in refs])
+    status, body = _request("POST", base + "/search_image" + ("?" + qs if qs else ""), raw=data)
+    assert status == 200
+    got = json.loads(body)["images"]
+    assert [d["id"] for d in got] == [d["id"] for d in want]
+    np.testing.assert_allclose([d["score"] for d in got], [d["score"] for d in want], atol=1e-5, rtol=0)
 
 
 # ---- GET /duplicates: these run last, on the corpus plus one duplicated photo ----
@@ -367,3 +386,146 @@ def test_search_ties_return_reference_ids_in_order(tied_servers, query, n_marked
     assert [d["id"] for d in got] == [d["id"] for d in want]
     scores = [d["score"] for d in got]
     assert len(got) == 50 and len(set(scores)) < 50  # tied scores among the results
+
+
+# ---- --search-twostage, POST /search_image and GET /metrics ----
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def twostage_servers(request, tmp_path_factory):
+    """Both engines with --search-twostage --index-quantize int8 and the
+    sketch dtype, over the photo corpus, scanned. The reference engine runs
+    without a device mesh (the tests' 8 virtual CPU devices would give it
+    one, and a meshed engine takes another path), as the port runs."""
+    root = tmp_path_factory.mktemp("torch_twostage_srv")
+    media = str(root / "pics")
+    _corpus(media)
+    cfg = tiny_test_config()
+    ckpt = str(root / "tiny.safetensors")
+    save_checkpoint(ckpt, jax_init_params(jax.random.key(5), cfg), cfg)
+    common = dict(model_weights=ckpt, media_dir=media, chunk_size=3, k=50, index_quantize="int8",
+                  search_twostage=True, sketch_dtype=request.param)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_engine_mod, "make_mesh", lambda *a, **kw: None)
+        ref = RefEngine(RefArgs(index_dir=str(root / "ref_idx"), **common))
+    port = SearchEngine(ServerArgs(index_dir=str(root / "port_idx"), **common), device="cpu")
+    server = make_server(port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    ref.scan()
+    assert json.loads(_request("GET", base + "/scan")[1])["embedded"] == len(SIZES)
+    assert ref.index.sketch_fresh and port.index.sketch_fresh
+    want = torch.bfloat16 if request.param == "bfloat16" else torch.float32
+    assert port.index._sketch.sketches[0].dtype == want
+    yield ref, port, base
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def _counter(metrics, name):
+    return metrics.snapshot()["counters"].get(name, 0)
+
+
+def _same_images(got, want):
+    assert [d["id"] for d in got] == [d["id"] for d in want]
+    np.testing.assert_allclose([d["score"] for d in got], [d["score"] for d in want], atol=1e-5, rtol=0)
+
+
+def _same_twostage_counts(ref, port):
+    assert (port.index.twostage_certified, port.index.twostage_fallbacks) == (
+        ref.index.twostage_certified, ref.index.twostage_fallbacks)
+
+
+@pytest.mark.parametrize("n_marked", [0, 2])
+def test_twostage_search_matches_reference(twostage_servers, n_marked):
+    """A cold /search takes the fused tokens -> tower -> Rocchio -> two-stage
+    path in both engines (fused_searches moves, the text cache fills with
+    the reference's embedding); the warm repeat takes the two-stage feedback
+    batch and answers alike; the certified counts equal the reference's."""
+    ref, port, base = twostage_servers
+    marked = [d["image_path"] for d in ref.search(f"marks {n_marked}")[:n_marked]]
+    port.search(f"marks {n_marked}")
+    query = f"a dark square {n_marked}"
+    fused = _counter(ref_metrics, "fused_searches"), _counter(global_metrics, "fused_searches")
+    certified = port.index.twostage_certified
+    want = ref.search(query, marked)
+    status, body = _request("POST", base + "/search", {"q": query, "referenced_images": marked})
+    assert status == 200
+    got = json.loads(body)["images"]
+    _same_images(got, want)
+    assert len(got) == len(SIZES)
+    assert _counter(ref_metrics, "fused_searches") == fused[0] + 1
+    assert _counter(global_metrics, "fused_searches") == fused[1] + 1
+    assert port.index.twostage_certified == certified + 1
+    _same_twostage_counts(ref, port)
+    np.testing.assert_allclose(port._cache_get(query).numpy(), np.asarray(ref._text_cache[query]), atol=1e-5)
+    warm = _request("POST", base + "/search", {"q": query, "referenced_images": marked})[1]
+    _same_images(json.loads(warm)["images"], ref.search(query, marked))
+    assert _counter(global_metrics, "fused_searches") == fused[1] + 1  # warm: no second fused run
+    assert port.index.twostage_certified == certified + 2
+    _same_twostage_counts(ref, port)
+
+
+def _photo_bytes(port):
+    path = sorted(p for p in port.index.paths if p.endswith("photo_4.png"))[0]
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("variant", ["plain", "ref", "k"])
+def test_search_image_matches_reference(twostage_servers, variant):
+    """POST /search_image: the photo's bytes as the query, at B=1 through the
+    vision tower, then the two-stage path (with ?ref=, its feedback batch)."""
+    ref, port, base = twostage_servers
+    data = _photo_bytes(port)
+    k, refs = None, []
+    if variant == "ref":
+        refs = [d["image_path"] for d in ref.search("marks for images")[:2]]
+        port.search("marks for images")
+    if variant == "k":
+        k = 3
+    want = ref.search_by_image(data, k, refs)
+    qs = urllib.parse.urlencode([("ref", r) for r in refs] + ([("k", k)] if k else []))
+    status, body = _request("POST", base + "/search_image" + ("?" + qs if qs else ""), raw=data)
+    assert status == 200
+    got = json.loads(body)["images"]
+    _same_images(got, want)
+    assert len(got) == (k or len(SIZES))
+    assert got[0]["image_path"].endswith("photo_4.png") or refs  # the photo finds itself
+    _same_twostage_counts(ref, port)
+
+
+def test_search_image_rejects_bad_requests(twostage_servers):
+    ref, port, base = twostage_servers
+    data = _photo_bytes(port)
+    assert _request("POST", base + "/search_image", raw=b"")[0] == 400
+    for bad in ("abc", "", "1.5"):
+        assert _request("POST", base + "/search_image?k=" + bad, raw=data)[0] == 400
+    status, body = _request("POST", base + "/search_image", raw=b"not an image")
+    assert status == 400 and json.loads(body) == {"error": "could not decode query image"}
+    with pytest.raises(ValueError, match="could not decode query image"):
+        ref.search_by_image(b"not an image")
+
+
+def test_metrics_keys_and_gauges(twostage_servers):
+    """GET /metrics: the reference's keys; the two-stage gauges equal the
+    reference engine's after the same requests; corpus_size and the model."""
+    ref, port, base = twostage_servers
+    ref.search("metrics probe")
+    _request("POST", base + "/search", {"q": "metrics probe", "referenced_images": []})
+    status, body = _request("GET", base + "/metrics")
+    assert status == 200
+    snap = json.loads(body)
+    assert set(snap) == {"uptime_sec", "counters", "gauges", "latencies", "model"}
+    assert snap["model"] == "clip-tiny-test"
+    assert snap["gauges"]["corpus_size"] == float(len(SIZES))
+    want = {k: v for k, v in ref_metrics.snapshot()["gauges"].items() if k.startswith("twostage_")}
+    got = {k: v for k, v in snap["gauges"].items() if k.startswith("twostage_")}
+    assert got == want and got["twostage_certified_total"] >= 1 and got["twostage_sketch_active"] == 1.0
+    for name in ("searches", "fused_searches", "image_searches", "scans", "images_embedded"):
+        assert snap["counters"][name] >= 1
+    assert {"scan", "sketch_build", "index_search", "image_embed"} <= set(snap["latencies"])
+    assert set(snap["latencies"]) <= set(ref_metrics.snapshot()["latencies"])
