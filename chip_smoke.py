@@ -63,17 +63,34 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    parts, B2 at the rescore's shape, ``search_twostage`` against ``search``,
    and a flat 2^20-row corpus whose certificates fail and whose answers are
    the full scan's;
-8. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
+8. the rest of the one-card server on 64 synthetic JPEG photos: (A) one
+   server with an int8 index, ``--batch-window-ms 2``, ``--thumb-cache`` and
+   ``--prune-on-scan``: the startup and post-scan warm-up before the first
+   search, no kernel build in a request, a second index scanned from the
+   thumbnail cache (64 hits, embeddings bitwise the first scan's), 32
+   concurrent clients (half with feedback) whose every answer and text
+   embedding equals the query alone, with p50/p99 and the mean batch beside
+   the same load without the batcher, ``POST /remove`` of 8 photos (later searches against
+   the plain scoring with those rows masked; B2's penalty variant counted),
+   a rescan that keeps them out, restore + rescan, 4 files deleted and
+   pruned; the first request of a fresh server process with and without the
+   warm-up; (B) ``--index-quantize bfloat16`` served (/search plain and with
+   feedback, /search_image, against the plain scoring) and direct at
+   10,000,000 bf16 rows (B = 1 and 8 against the f32-upcast plain top-k,
+   timed in turns with the int8 full scan; the bf16 GEMM with an f32 output
+   against f32-upcast chunks on one slab; ``approx=True`` against the exact
+   top-k); (C) ``--search-approx`` answers equal the exact search;
+9. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
    B=8) on the card against the same step in f32 on the CPU: loss and
    gradient cosines, and B1/B5 launches per step; the same card step under
    ``ISX_ATTN_PIPE=0`` and ``ISX_ATTN_SPLIT=1`` (loss within 1e-2 of the
    default route's, B5 on every backward);
-9. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
+10. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
    with captions, batch 64, 6 steps, with ``--eval-dir`` and
    ``--checkpoint-dir``, once without and once with ``--remat``: the loss
    falls, the output checkpoint reads back with new weights, B1/B5 launch
    counts; ms/step, pairs/s, peak memory;
-10. a ``torch.profiler`` split of one batch-64 train step's device time.
+11. a ``torch.profiler`` split of one batch-64 train step's device time.
 
 Each phase sets the attention route switches it needs and restores them
 after. The second-to-last line is a JSON object describing every kernel of
@@ -788,26 +805,98 @@ def _http(method: str, url: str, body=None, raw=None):
     return status, json.loads(raw), (time.perf_counter() - t0) * 1e3
 
 
+def _plain_scores_top(torch, idx, q, k: int):
+    """The plain scoring of one query vector [1, D] over the index's rows
+    (B2's plain version with the tombstone penalties for int8 rows, both
+    operands upcast to f32 for bf16 rows), tombstoned rows dropped ->
+    (scores, paths), torch.topk's order."""
+    from image_search_tpu_torch.index.index import NEG_INF, _l2
+    from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, scores_int8_reference
+
+    with idx._lock:
+        slabs, _, scales, pens = idx._snapshot()
+        size = idx._size
+    parts, start = [], 0
+    if scales is not None:
+        qi, qs = quantize_queries_int8(q)
+    for i, slab in enumerate(slabs):
+        pen = None if pens is None else pens[i]
+        if scales is not None:
+            parts.append(scores_int8_reference(slab, qi, qs, scales[i], size - start, pen))
+        else:
+            s = _l2(q).to(slab.dtype).float() @ slab.float().T
+            s = s if pen is None else s + pen[None, :]
+            gpos = torch.arange(slab.shape[0], device=s.device) + start
+            parts.append(torch.where(gpos[None, :] < size, s, torch.full_like(s, NEG_INF)))
+        start += slab.shape[0]
+    v, i = torch.topk(torch.cat(parts, dim=1), min(k, size), dim=-1)
+    keep = v[0] > NEG_INF / 2
+    return v[0][keep].cpu().tolist(), [idx.paths[j] for j in i[0][keep].cpu().tolist()]
+
+
 def _plain_top(torch, engine, query: str, refs, k: int):
     """The plain scoring of the engine's own index for one request."""
     from image_search_tpu_torch.index.index import _rocchio_queries
-    from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, scores_int8_reference
 
     idx = engine.index
     with idx._lock:
         slabs, norms, scales, _ = idx._snapshot()
-        size = idx._size
         sel = [idx._row[engine._resolve_selection(m)] for m in refs] or [-1]
     text = engine._cache_get(query).float().reshape(1, -1)
     q = _rocchio_queries(slabs, scales, norms, text, torch.tensor([sel], device=text.device))
-    qi, qs = quantize_queries_int8(q)
-    parts, start = [], 0
-    for slab, sc in zip(slabs, scales):
-        parts.append(scores_int8_reference(slab, qi, qs, sc, size - start))
-        start += slab.shape[0]
-    scores = torch.cat(parts, dim=1)
-    v, i = torch.topk(scores, min(k, size), dim=-1)
-    return v[0].cpu().tolist(), [idx.paths[j] for j in i[0].cpu().tolist()]
+    return _plain_scores_top(torch, idx, q, k)
+
+
+def _photos(media: str, fmt: str = "bmp", n: int = 64, lo: int = 64, hi: int = 640, seed: int = 1):
+    """n synthetic photos (a flat colour and a square, sides in [lo, hi)),
+    one in four under sub/, as BMP or JPEG (quality 92)."""
+    import numpy as np
+
+    from image_search_tpu_torch.ingest.decode import write_bmp24
+
+    os.makedirs(os.path.join(media, "sub"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        h, w = (int(x) for x in rng.integers(lo, hi, 2))
+        img = np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
+        y, x = h // 4, w // 4
+        img[y : 3 * y, x : 3 * x] = rng.integers(0, 256, 3)  # a square
+        path = os.path.join(media, "sub" if i % 4 == 0 else "", f"photo_{i:02d}.{'jpg' if fmt == 'jpeg' else 'bmp'}")
+        if fmt == "jpeg":
+            from PIL import Image
+
+            img[:, :, 2] = np.linspace(0, 255, w, dtype=np.uint8)[None, :]  # a ramp: the DCT has work
+            Image.fromarray(img).save(path, quality=92)
+        else:
+            write_bmp24(path, img)
+
+
+@contextlib.contextmanager
+def _server_on(dev, model: str, media: str, index_dir: str, flags=()):
+    """The HTTP server over the photos in ``media`` and the index in
+    ``index_dir`` (int8 unless ``flags`` say otherwise), seeded random
+    weights, with ``flags`` added to the command line (``--batch-window-ms``
+    reaches make_server): yields (engine, base URL, k)."""
+    from image_search_tpu_torch.server.app import make_server, parse_args
+    from image_search_tpu_torch.server.engine import SearchEngine
+
+    args, device = parse_args([
+        "--media-dir", media, "--index-dir", index_dir,
+        "--index-quantize", "int8", "--model", model,
+        "--model-weights", os.path.join(os.path.dirname(index_dir), "no-checkpoint.safetensors"),
+        "--device", str(dev), *flags,
+    ])
+    engine = SearchEngine(args, device=device)
+    server = make_server(engine, "127.0.0.1", 0, batch_window_ms=args.batch_window_ms)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield engine, f"http://127.0.0.1:{server.server_port}", min(args.k, 64)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
 
 
 @contextlib.contextmanager
@@ -815,39 +904,11 @@ def _serving(dev, model: str, flags=()):
     """The HTTP server over 64 synthetic BMP photos and an empty int8 index,
     seeded random weights, with ``flags`` added to the command line: yields
     (engine, base URL, media dir, k)."""
-    import numpy as np
-
-    from image_search_tpu_torch.ingest.decode import write_bmp24
-    from image_search_tpu_torch.server.app import make_server, parse_args
-    from image_search_tpu_torch.server.engine import SearchEngine
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         media = os.path.join(tmp, "photos")
-        os.makedirs(os.path.join(media, "sub"))
-        rng = np.random.default_rng(1)
-        for i in range(64):
-            h, w = (int(x) for x in rng.integers(64, 640, 2))
-            img = np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
-            y, x = h // 4, w // 4
-            img[y : 3 * y, x : 3 * x] = rng.integers(0, 256, 3)  # a square
-            write_bmp24(os.path.join(media, "sub" if i % 4 == 0 else "", f"photo_{i:02d}.bmp"), img)
-        args, device = parse_args([
-            "--media-dir", media, "--index-dir", os.path.join(tmp, "index"),
-            "--index-quantize", "int8", "--model", model,
-            "--model-weights", os.path.join(tmp, "no-checkpoint.safetensors"),
-            "--device", str(dev), *flags,
-        ])
-        engine = SearchEngine(args, device=device)
-        server = make_server(engine, "127.0.0.1", 0)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        try:
-            yield engine, f"http://127.0.0.1:{server.server_port}", media, min(args.k, 64)
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=30)
-    check(not thread.is_alive(), "server thread did not stop")
+        _photos(media)
+        with _server_on(dev, model, media, os.path.join(tmp, "index"), flags) as (engine, base, k):
+            yield engine, base, media, k
 
 
 def _scan_and_search(torch, engine, base: str, k: int):
@@ -1252,6 +1313,423 @@ def phase_twostage(torch, dev):
     return launches, times, twostage_10m(torch, dev)
 
 
+SERVE_CLIENTS, SERVE_ROUNDS = 32, 8  # the batcher's load: clients, requests each (one after another)
+BF16_ROWS = 10_000_000  # the direct bf16 corpus: 768-d rows, 15.4 GB
+# bf16 rows: two f32 sums of the same exact products in two orders (cuBLAS's
+# GEMM with an f32 output, the plain version's upcast matmul) differ by up to
+# a few ulp of a score near 1; the bound for any two orders is 2 * 768 * 2^-24
+NEAR_TIE = 1e-5
+
+
+def _wait_gauge(base: str, name: str, timeout: float = 600.0) -> float:
+    """Poll GET /metrics until the gauge ``name`` reads 1 -> seconds waited."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if _http("GET", base + "/metrics")[1]["gauges"].get(name) == 1.0:
+            return time.perf_counter() - t0
+        time.sleep(0.02)
+    raise SmokeFailure(f"gauge {name} did not reach 1 within {timeout} s")
+
+
+def _load(base: str, tag: str, marks):
+    """SERVE_CLIENTS client threads released together, each sending
+    SERVE_ROUNDS /search requests one after another, every query new (the
+    text tower runs in every batch), every other client marking ``marks``
+    -> ({(query, refs): images}, client ms of every request)."""
+    answers, lat, errors = {}, [], []
+    lock = threading.Lock()
+    start = threading.Barrier(SERVE_CLIENTS)
+
+    def client(c):
+        try:
+            start.wait()
+            refs = tuple(marks) if c % 2 else ()
+            for r in range(SERVE_ROUNDS):
+                q = f"{tag} query {c} {r}"
+                st, body, ms = _http("POST", base + "/search", {"q": q, "referenced_images": list(refs)})
+                check(st == 200, f"{tag} load: /search answered {st}")
+                with lock:
+                    answers[(q, refs)] = body["images"]
+                    lat.append(ms)
+        except Exception as err:  # reported below, on the main thread
+            with lock:
+                errors.append(repr(err))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not errors and not any(t.is_alive() for t in threads), f"{tag} load: {errors[:3]}")
+    return answers, lat
+
+
+def _pct(xs, p: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def _mean_batch(before, after) -> float:
+    """Searches per engine.search_many call between two GET /metrics bodies
+    (the full-scan path times one index_search per call)."""
+    n = after["counters"].get("searches", 0) - before["counters"].get("searches", 0)
+    calls = after["latencies"]["index_search"]["count"] - before["latencies"].get("index_search", {}).get("count", 0)
+    return n / calls
+
+
+def _pairs(images):
+    return [(d["image_path"], d["score"]) for d in images]
+
+
+def _close_answer(name: str, got_s, got_p, want_s, want_p, tol: float = NEAR_TIE):
+    """Scores within ``tol``; paths equal wherever no neighbour lies within
+    ``tol`` (a near-tie may swap under another summation order)."""
+    check(len(got_s) == len(want_s), f"{name}: {len(got_s)} results, want {len(want_s)}")
+    err = max((abs(a - b) for a, b in zip(got_s, want_s)), default=0.0)
+    check(err <= tol, f"{name}: scores {err} from the plain scoring")
+    apart = [j for j in range(len(got_s))
+             if all(abs(got_s[j] - got_s[i]) > tol for i in (j - 1, j + 1) if 0 <= i < len(got_s))]
+    check(all(got_p[j] == want_p[j] for j in apart), f"{name}: ids differ from the plain scoring")
+    return err
+
+
+def _served(engine, images):
+    return [d["score"] for d in images], [engine.to_abs_path(d["image_path"]) for d in images]
+
+
+def serving_batched(torch, dev, model: str, tmp: str, media: str, thumbs: str):
+    """Step A: one server with an int8 index, --batch-window-ms 2,
+    --thumb-cache and --prune-on-scan on the JPEG photos."""
+    import numpy as np
+
+    from image_search_tpu_torch import _build
+    from image_search_tpu_torch.ops.score_stream import stream_scores_int8
+    from image_search_tpu_torch.server.app import make_server, parse_args
+    from image_search_tpu_torch.server.engine import SearchEngine
+    from image_search_tpu_torch.utils.metrics import global_metrics
+
+    res = {}
+    lib, built = _build._lib, _build.build_seconds
+    flags = ["--batch-window-ms", "2", "--thumb-cache", thumbs, "--prune-on-scan"]
+    with _server_on(dev, model, media, os.path.join(tmp, "index_a"), flags) as (engine, base, k):
+        _wait_gauge(base, "serving_warmup_done")  # the startup warm-up, on an empty index
+        client = os.path.join(REPO, "image_search_tpu_torch", "client", "static")
+        for path, name in (("/", "index.html"), ("/static/app.js", "app.js"), ("/a/client/route", "index.html")):
+            with urllib.request.urlopen(base + path, timeout=60) as r, open(os.path.join(client, name), "rb") as f:
+                check(r.status == 200 and r.read() == f.read(), f"GET {path} is not the client's {name}")
+        global_metrics.gauge("serving_warmup_done", 0.0)
+        _reset_counts()
+        st, scan, _ = _http("GET", base + "/scan")
+        tc = engine.thumb_cache
+        check(st == 200 and scan["embedded"] == 64 and scan["decode_failures"] == 0, f"/scan: {scan}")
+        check((tc.misses, tc.hits) == (64, 0), f"first scan: {tc.misses} cache misses, {tc.hits} hits, want 64, 0")
+        res["scan_cold_img_per_s"] = scan["embedded"] / scan["seconds"]
+        res["rewarm_s"] = _wait_gauge(base, "serving_warmup_done")  # the re-warm after a scan that embedded
+
+        # the model-upgrade path: a second index over the same photos and cache
+        args2, device = parse_args([
+            "--media-dir", media, "--index-dir", os.path.join(tmp, "index_a2"), "--index-quantize", "int8",
+            "--model", model, "--model-weights", os.path.join(tmp, "no-checkpoint.safetensors"),
+            "--device", str(dev), "--thumb-cache", thumbs,
+        ])
+        second = SearchEngine(args2, device=device)
+        stats2 = second.scan()
+        check((second.thumb_cache.hits, second.thumb_cache.misses) == (64, 0),
+              f"second scan: {second.thumb_cache.hits} cache hits, {second.thumb_cache.misses} misses, want 64, 0")
+        res["scan_warm_img_per_s"] = stats2.images_per_sec
+        paths_a, emb_a = engine.index.store.load_all()
+        paths_b, emb_b = second.index.store.load_all()
+        row_b = {p: i for i, p in enumerate(paths_b)}
+        check(sorted(paths_a) == sorted(paths_b) and all(np.array_equal(emb_a[i], emb_b[row_b[p]])
+                                                         for i, p in enumerate(paths_a)),
+              "cache-hit embeddings are not bitwise the first scan's")
+        del second
+        torch.cuda.empty_cache()
+
+        check(_build._lib is lib and _build.build_seconds == built, "a kernel build ran inside the server")
+        st, first, res["first_search_ms"] = _http("POST", base + "/search", {"q": "a red square", "referenced_images": []})
+        marks = [d["image_path"] for d in first["images"][:2]]
+
+        before = _http("GET", base + "/metrics")[1]
+        answers, lat = _load(base, "batched", marks)
+        after = _http("GET", base + "/metrics")[1]
+        res["batched"] = dict(p50_ms=_pct(lat, 0.5), p99_ms=_pct(lat, 0.99), mean_batch=_mean_batch(before, after))
+        check(res["batched"]["mean_batch"] > 1.0, f"the batcher formed no batch: {res['batched']}")
+        check(after["counters"].get("batched_feedback_searches", 0) > before["counters"].get("batched_feedback_searches", 0),
+              "no feedback search was batched")
+        for (q, refs), images in answers.items():  # the text embedding the batch made, from the cache
+            check(_pairs(images) == _pairs(engine.search(q, list(refs))), f"batched answer to {q!r} differs from it alone")
+        # the text tower: each query's embedding made in its batch (cached) against the query alone (B=1)
+        differ = [q for q, _ in answers
+                  if not torch.equal(engine._cache_get(q).reshape(-1), engine.embedder.embed_texts_device([q])[0].reshape(-1))]
+        check(not differ, f"text tower: {len(differ)} of {len(answers)} embeddings made in a batch differ from the "
+                          f"query alone, e.g. {differ[:3]}")
+
+        server0 = make_server(engine, "127.0.0.1", 0)  # the same engine, no batcher
+        thread0 = threading.Thread(target=server0.serve_forever, daemon=True)
+        thread0.start()
+        base0 = f"http://127.0.0.1:{server0.server_port}"
+        try:
+            before = _http("GET", base0 + "/metrics")[1]
+            _, lat0 = _load(base0, "unbatched", marks)
+            after = _http("GET", base0 + "/metrics")[1]
+        finally:
+            server0.shutdown()
+            server0.server_close()
+            thread0.join(timeout=30)
+        res["unbatched"] = dict(p50_ms=_pct(lat0, 0.5), p99_ms=_pct(lat0, 0.99), mean_batch=_mean_batch(before, after))
+        print(f"serving A: GET / and a client route answer index.html, /static/app.js the client's file; "
+              f"{SERVE_CLIENTS} clients x {SERVE_ROUNDS} /search (half with feedback): window 2 ms "
+              f"{res['batched']}, window 0 {res['unbatched']}; every batched answer and text embedding equals the "
+              f"query alone ({len(answers)} of {len(answers)}); first /search after the re-warm {res['first_search_ms']} ms "
+              f"(re-warm {res['rewarm_s']} s); scan {res['scan_cold_img_per_s']} img/s with the cache cold, "
+              f"{res['scan_warm_img_per_s']} warm (64 hits, embeddings bitwise the first scan's)")
+
+        # POST /remove: later searches omit the photos, through B2's penalty variant
+        paths = sorted(engine.index.paths)
+        victims = [engine.to_media_path(p) for p in paths[:8]]
+        marks2 = [engine.to_media_path(p) for p in paths[8:10]]
+        st, body, _ = _http("POST", base + "/remove", {"images": victims})
+        check(st == 200 and body == {"removed": 8}, f"/remove: {st} {body}")
+        pen0 = stream_scores_int8.penalty_launches
+        for name, q, refs in (("plain", "after removal", []), ("feedback", "after removal, marked", marks2)):
+            st, body, _ = _http("POST", base + "/search", {"q": q, "referenced_images": refs})
+            check(st == 200 and len(body["images"]) == 56, f"/search after /remove {name}: {len(body['images'])} results")
+            check(not set(victims) & {d["image_path"] for d in body["images"]}, f"/search after /remove {name}: a removed photo")
+            _same_answer(f"/search after /remove {name}", *_served(engine, body["images"]), *_plain_top(torch, engine, q, refs, k))
+        res["penalty_launches_after_remove"] = stream_scores_int8.penalty_launches - pen0
+        check(res["penalty_launches_after_remove"] >= 2, "B2's penalty variant did not run after /remove")
+
+        st, scan, _ = _http("GET", base + "/scan")
+        check(scan["embedded"] == 0 and scan["pruned"] == 0, f"rescan after /remove: {scan}")
+        body = _http("POST", base + "/search", {"q": "after rescan", "referenced_images": []})[1]
+        check(len(body["images"]) == 56 and not set(victims) & {d["image_path"] for d in body["images"]},
+              "a rescan brought a removed photo back")
+        st, body, _ = _http("POST", base + "/remove", {"images": victims, "restore": True})
+        check(st == 200 and body == {"restored": 8}, f"/remove restore: {st} {body}")
+        hits = tc.hits
+        st, scan, _ = _http("GET", base + "/scan")
+        check(scan["embedded"] == 8 and tc.hits - hits == 8, f"rescan after restore: {scan}, {tc.hits - hits} cache hits")
+        body = _http("POST", base + "/search", {"q": "after restore", "referenced_images": []})[1]
+        check(len(body["images"]) == 64 and set(victims) <= {d["image_path"] for d in body["images"]},
+              "restore + rescan did not bring the photos back")
+        gone = paths[-4:]
+        for p in gone:
+            os.remove(p)
+        st, scan, _ = _http("GET", base + "/scan")
+        check(scan["pruned"] == 4 and scan["embedded"] == 0, f"rescan after deleting 4 files: {scan}")
+        body = _http("POST", base + "/search", {"q": "after prune", "referenced_images": []})[1]
+        check(len(body["images"]) == 60 and not {engine.to_media_path(p) for p in gone} & {d["image_path"] for d in body["images"]},
+              "a pruned photo came back")
+        torch.cuda.synchronize()
+        res["launches"] = _read_counts()
+    print(f"serving A: /remove 8 -> 56 results, each /search equal to the plain scoring with the rows masked, B2 "
+          f"penalty launches {res['penalty_launches_after_remove']}; rescan kept them out; restore + rescan brought "
+          f"them back (8 cache hits); 4 files deleted -> pruned 4; launches {res['launches']}")
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def first_request(model: str, dev, tmp: str, media: str, window: str):
+    """The user's entry point in a fresh process (``python -m
+    image_search_tpu_torch.server.app``) over step A's index: seconds until
+    /health answers, with a window until serving_warmup_done, then the first
+    and the second /search (client ms). The process is stopped after."""
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "image_search_tpu_torch.server.app", "--media-dir", media,
+           "--index-dir", os.path.join(tmp, "index_a"), "--index-quantize", "int8", "--model", model,
+           "--model-weights", os.path.join(tmp, "no-checkpoint.safetensors"), "--port", str(port),
+           "--batch-window-ms", window, "--device", str(dev)]
+    with open(os.path.join(tmp, f"server_{window}.log"), "w") as log_f:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                check(proc.poll() is None, f"the server process exited with {proc.returncode}")
+                check(time.perf_counter() - t0 < 300, "the server process did not answer /health")
+                try:
+                    _http("GET", base + "/health")
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            out = {"up_s": time.perf_counter() - t0}
+            if float(window) > 0:
+                out["warmup_s"] = _wait_gauge(base, "serving_warmup_done", timeout=300)
+            for name in ("first_ms", "second_ms"):
+                st, body, out[name] = _http("POST", base + "/search", {"q": f"{name} query", "referenced_images": []})
+                check(st == 200 and len(body["images"]) == 60, f"fresh server /search: {st}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def serving_bf16_http(torch, dev, model: str, tmp: str, media: str, thumbs: str):
+    """Step B, served: --index-quantize bfloat16 on the photos left after
+    step A: /search plain and with feedback, /search_image, each against the
+    plain scoring of the same rows (both operands upcast to f32)."""
+    from image_search_tpu_torch.ingest.decode import decode_image_bytes
+
+    res = {}
+    with _server_on(dev, model, media, os.path.join(tmp, "index_bf16"),
+                    ["--index-quantize", "bfloat16", "--thumb-cache", thumbs]) as (engine, base, k):
+        st, scan, _ = _http("GET", base + "/scan")
+        check(st == 200 and scan["embedded"] == 60, f"bf16 /scan: {scan}")
+        check(engine.index._emb_slabs[0].dtype == torch.bfloat16, "the index rows are not bf16")
+        marks = [engine.to_media_path(p) for p in sorted(engine.index.paths)[:2]]
+        errs = []
+        for name, q, refs in (("plain", "a red square", []), ("feedback", "a green square", marks)):
+            st, body, ms = _http("POST", base + "/search", {"q": q, "referenced_images": refs})
+            check(st == 200 and len(body["images"]) == 60, f"bf16 /search {name}: {st}")
+            errs.append(_close_answer(f"bf16 /search {name}", *_served(engine, body["images"]), *_plain_top(torch, engine, q, refs, k)))
+        photo = sorted(engine.index.paths)[5]
+        with open(photo, "rb") as f:
+            data = f.read()
+        st, body, ms = _http("POST", base + "/search_image", raw=data)
+        check(st == 200 and body["images"][0]["image_path"] == engine.to_media_path(photo), "bf16 /search_image")
+        emb = engine.embedder.embed_images_async([decode_image_bytes(data)], min_bucket=1)[:1].float()
+        errs.append(_close_answer("bf16 /search_image", *_served(engine, body["images"]), *_plain_scores_top(torch, engine.index, emb, k)))
+        res["max_abs_err"] = max(errs)
+    print(f"serving B: bf16 rows served: /search plain and feedback and /search_image within {res['max_abs_err']} "
+          f"of the plain scoring, ids equal away from near-ties")
+    return res
+
+
+def bf16_10m(torch, dev):
+    """Step B, direct: BF16_ROWS bf16 rows (and the same rows as int8) made
+    on the card in slabs; the bf16 full scan at B = 1 and 8 against the
+    f32-upcast plain top-k, timed in turns with the int8 full scan; the two
+    ways to score a bf16 slab in f32 on one slab; approx=True against the
+    exact order on the int8 rows."""
+    from image_search_tpu_torch.index.index import _l2, _search_local
+    from image_search_tpu_torch.ops.score_stream import float_scores, quantize_rows_int8
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n, k = BF16_ROWS, TWOSTAGE_K
+    mix = torch.randn(64, DIM, generator=gen, device=dev)
+    bf, i8, sc = [], [], []
+    for lo in range(0, n, TWOSTAGE_SLAB):
+        rows = min(TWOSTAGE_SLAB, n - lo)
+        cap = -(-rows // 4096) * 4096
+        bf.append(torch.zeros((cap, DIM), dtype=torch.bfloat16, device=dev))
+        i8.append(torch.zeros((cap, DIM), dtype=torch.int8, device=dev))
+        sc.append(torch.zeros(cap, device=dev))
+        for c0 in range(0, rows, 262_144):
+            c1 = min(rows, c0 + 262_144)
+            e = torch.randn(c1 - c0, 64, generator=gen, device=dev) @ mix
+            e = torch.nn.functional.normalize(e + 0.02 * torch.randn(c1 - c0, DIM, generator=gen, device=dev), dim=-1)
+            bf[-1][c0:c1] = e.bfloat16()
+            i8[-1][c0:c1], sc[-1][c0:c1] = quantize_rows_int8(e)
+    bf, i8, sc = tuple(bf), tuple(i8), tuple(sc)
+    torch.cuda.synchronize()
+    res = {"rows": n, "gb": sum(s.numel() * 2 for s in bf) / 1e9}
+    for B in (1, 8):
+        q = torch.randn(B, 64, generator=gen, device=dev) @ mix + 0.02 * torch.randn(B, DIM, generator=gen, device=dev)
+        got_s, got_i = _search_local(bf, n, q, k)
+        check(got_s.dtype == torch.float32, "bf16 scan scores are not f32")
+        qb = _l2(q).bfloat16().float()
+        parts, start = [], 0
+        for slab in bf:  # the plain version: both operands upcast to f32, a chunk at a time
+            s = torch.cat([qb @ slab[c:c + 262_144].float().T for c in range(0, slab.shape[0], 262_144)], dim=1)
+            gpos = torch.arange(slab.shape[0], device=dev) + start
+            parts.append(torch.where(gpos[None, :] < n, s, torch.full_like(s, -3.0e38)))
+            start += slab.shape[0]
+        want_s, want_i = torch.topk(torch.cat(parts, dim=1), k, dim=-1)
+        del parts
+        err = float((got_s - want_s).abs().max())
+        check(err <= NEAR_TIE, f"bf16 10M B={B}: scores {err} from the f32-upcast plain top-k")
+        near = torch.zeros_like(got_s, dtype=torch.bool)
+        near[:, 1:] |= (got_s[:, 1:] - got_s[:, :-1]).abs() <= NEAR_TIE
+        near[:, :-1] |= (got_s[:, :-1] - got_s[:, 1:]).abs() <= NEAR_TIE
+        check(torch.equal(got_i[~near], want_i[~near]), f"bf16 10M B={B}: ids differ from the f32-upcast plain top-k")
+        bf_ms, i8_ms = ab_ms(torch, lambda: _search_local(i8, n, q, k, sc), lambda: _search_local(bf, n, q, k), iters=5)
+        # the two ways to leave a bf16 product in f32, on one slab
+        qb16 = _l2(q).bfloat16()
+        gemm_ms, up_ms = ab_ms(
+            torch,
+            lambda: torch.cat([qb16.float() @ bf[0][c:c + 262_144].float().T for c in range(0, bf[0].shape[0], 262_144)], dim=1),
+            lambda: float_scores(_l2(q), bf[0]), iters=5,
+        )
+        # approx=True: lax.top_k's order, the same values as the exact path
+        a_s, a_i = _search_local(i8, n, q, k, sc, approx=True)
+        e_s, e_i = _search_local(i8, n, q, k, sc)
+        check(torch.equal(a_s, e_s), f"approx 10M B={B}: values differ from the exact top-k")
+        tie = torch.zeros_like(a_s, dtype=torch.bool)
+        tie[:, 1:] |= a_s[:, 1:] == a_s[:, :-1]
+        tie[:, :-1] |= a_s[:, :-1] == a_s[:, 1:]
+        check(torch.equal(a_i[~tie], e_i[~tie]), f"approx 10M B={B}: ids differ from the exact top-k away from ties")
+        approx_ms, exact_ms = ab_ms(torch, lambda: _search_local(i8, n, q, k, sc),
+                                    lambda: _search_local(i8, n, q, k, sc, approx=True), iters=5)
+        res[B] = dict(bf16_ms=bf_ms, int8_ms=i8_ms, max_abs_err=err, slab_gemm_f32_out_ms=gemm_ms,
+                      slab_upcast_ms=up_ms, approx_ms=approx_ms, exact_ms=exact_ms)
+        print(f"bf16 10M B={B}: full scan {bf_ms} ms vs int8 {i8_ms} ms in turns; scores within {err} of the "
+              f"f32-upcast plain top-k, ids equal away from near-ties; one 2^20-row slab: bf16 GEMM with f32 out "
+              f"{gemm_ms} ms vs f32-upcast chunks {up_ms} ms; int8 approx (lax.top_k order) {approx_ms} ms vs exact "
+              f"{exact_ms} ms, values bitwise")
+    del bf, i8, sc
+    torch.cuda.empty_cache()
+    return res
+
+
+def serving_approx(torch, dev, model: str, tmp: str, media: str, thumbs: str):
+    """Step C: --search-approx: /search plain and with feedback and
+    /search_image, each equal to the same engine's exact index call."""
+    from image_search_tpu_torch.ingest.decode import decode_image_bytes
+
+    with _server_on(dev, model, media, os.path.join(tmp, "index_approx"),
+                    ["--search-approx", "--thumb-cache", thumbs]) as (engine, base, k):
+        st, scan, _ = _http("GET", base + "/scan")
+        check(st == 200 and scan["embedded"] == 60, f"approx /scan: {scan}")
+        marks = [engine.to_media_path(p) for p in sorted(engine.index.paths)[:2]]
+        for name, q, refs in (("plain", "a red square", []), ("feedback", "a green square", marks)):
+            st, body, _ = _http("POST", base + "/search", {"q": q, "referenced_images": refs})
+            text = engine._cache_get(q).float().reshape(1, -1)
+            s, i = engine.index.search_with_feedback_batch(text, [[engine._resolve_selection(m) for m in refs]], k)
+            check(st == 200 and _pairs(body["images"]) == _pairs(engine._format_results(s[0], i[0])),
+                  f"approx /search {name}: differs from the exact search")
+        photo = sorted(engine.index.paths)[5]
+        with open(photo, "rb") as f:
+            data = f.read()
+        st, body, _ = _http("POST", base + "/search_image", raw=data)
+        emb = engine.embedder.embed_images_async([decode_image_bytes(data)], min_bucket=1)[:1]
+        s, i = engine.index.search(emb, k)
+        check(st == 200 and _pairs(body["images"]) == _pairs(engine._format_results(s[0], i[0])),
+              "approx /search_image: differs from the exact search")
+    print("serving C: --search-approx: /search plain and feedback and /search_image equal the exact search")
+
+
+def phase_serving(torch, dev, model: str = "clip-vit-large-patch14"):
+    """The rest of the one-card server on 64 synthetic JPEG photos: the
+    batcher, the warm-up, /remove with restore, --prune-on-scan and the
+    thumbnail cache (A); the first request of a fresh server process with
+    and without the warm-up; bf16 rows served and at 10M rows (B);
+    --search-approx (C)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        media, thumbs = os.path.join(tmp, "photos"), os.path.join(tmp, "thumbs")
+        _photos(media, fmt="jpeg", lo=480, hi=1400, seed=2)
+        res = {"batched": serving_batched(torch, dev, model, tmp, media, thumbs)}
+        res["first_request"] = {w: first_request(model, dev, tmp, media, w) for w in ("0", "2")}
+        print(f"fresh server process, first and second /search: window 0 (no warm-up) {res['first_request']['0']}, "
+              f"window 2 (warm-up) {res['first_request']['2']}")
+        res["bf16_http"] = serving_bf16_http(torch, dev, model, tmp, media, thumbs)
+        res["bf16_10m"] = bf16_10m(torch, dev)
+        serving_approx(torch, dev, model, tmp, media, thumbs)
+    return res
+
+
 def _kernel_counts():
     from image_search_tpu_torch.ops import attention as A
     from image_search_tpu_torch.ops.blockmax import blockpair_mask, blockpair_values
@@ -1264,12 +1742,19 @@ def _kernel_counts():
 
 
 def _reset_counts():
+    from image_search_tpu_torch.ops.score_stream import stream_scores_int8
+
     for fn in _kernel_counts():
         fn.launches = 0
+    stream_scores_int8.penalty_launches = 0
 
 
 def _read_counts():
-    return {fn.__name__: fn.launches for fn in _kernel_counts()}
+    from image_search_tpu_torch.ops.score_stream import stream_scores_int8
+
+    out = {fn.__name__: fn.launches for fn in _kernel_counts()}
+    out["stream_scores_int8_penalty"] = stream_scores_int8.penalty_launches
+    return out
 
 
 def _groups(pairs, paths):
@@ -1874,6 +2359,8 @@ def main() -> int:
     launches, dup = phase_server(torch, dev)
     served = phase_server_routes(torch, dev)
     ts_launches, ts_times, ts = phase_twostage(torch, dev)
+    serving = phase_serving(torch, dev)
+    sv_launches = serving["batched"]["launches"]
     grad = phase_train_grad(torch, dev)
     ft = phase_finetune(torch, dev, smi)
     prof = phase_train_profile(torch, dev)
@@ -1890,14 +2377,15 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [
         entry("fused_attention", "attention.cu", "attention.py:665",
-              launches["fused_attention"] + ts_launches["fused_attention"],
+              launches["fused_attention"] + ts_launches["fused_attention"] + sv_launches["fused_attention"],
               kern[("grouped", 257)],
               max(kern[("grouped", 257)]["max_abs_err"], kern[("grouped", 77)]["max_abs_err"])),
         entry("fused_attention_packed", "attention.cu", "attention.py:29",
               served["packed"]["launches"]["fused_attention_packed"], kern[("packed", 257)],
               max(kern[("packed", 257)]["max_abs_err"], kern[("packed", 77)]["max_abs_err"])),
         entry("stream_scores_int8", "score_stream.cu", "score_stream.py:67",
-              dup["legacy"]["counts"]["stream_scores_int8"] + ts_launches["stream_scores_int8"],
+              dup["legacy"]["counts"]["stream_scores_int8"] + ts_launches["stream_scores_int8"]
+              + sv_launches["stream_scores_int8"],
               kern[("score", 1024, False)],
               max(v["max_abs_err"] for key, v in kern.items() if key[0] == "score")),
         entry("blockpair_mask", "blockmax.cu", "blockmax.py:66",
@@ -1933,7 +2421,13 @@ def main() -> int:
                      "search_twostage_ms": ts["search_twostage_ms"], "search_ms": ts["search_ms"],
                      "flat": ts["flat"]},
         "duplicates_direct_ms": {k: {p: v[p] for p in ("sketch_ms", "phase1_ms", "rescore_ms")}
-                                 for k, v in dup.items() if k in ("certified", "approximate")}}))
+                                 for k, v in dup.items() if k in ("certified", "approximate")},
+        "serving": {"batched": serving["batched"]["batched"], "unbatched": serving["batched"]["unbatched"],
+                    "b2_penalty_launches": sv_launches["stream_scores_int8_penalty"],
+                    "scan_img_per_s": {"cache_cold": serving["batched"]["scan_cold_img_per_s"],
+                                       "cache_warm": serving["batched"]["scan_warm_img_per_s"]},
+                    "first_request": serving["first_request"],
+                    "bf16_10m": {f"B{b}": serving["bf16_10m"][b] for b in (1, 8)}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -1,19 +1,23 @@
 """Device-resident exact-cosine vector index with Rocchio feedback.
 
 Port of ``image_search_tpu/index/index.py::VectorIndex`` for one device, with
-f32 or int8 rows:
+f32, bf16 or int8 rows:
 
 - rows are stored l2-NORMALIZED next to their original norms, so the raw
   vectors the reference stores are ``row * norm`` and the Rocchio average is
   taken in raw space;
 - int8 rows are quantized on the host in the reference's numpy op order and
-  scored by kernel B2 (``ops.score_stream.stream_scores_int8``); f32 rows by a
-  plain ``q @ rows.T`` (plain XLA in the reference);
+  scored by kernel B2 (``ops.score_stream.stream_scores_int8``); f32 and bf16
+  rows by one GEMM (plain XLA in the reference; ``ops.score_stream.float_scores``);
 - rows live in slabs: the first doubles up to ``slab_rows``, then whole new
   slabs are added, so growth never copies the corpus; appends are written in
   4096-row-aligned blocks;
 - tombstones are additive score penalties (0 live, NEG_INF removed), passed
-  to the scan only once a removal happened;
+  to the scan only once a removal happened (``remove_paths``; with
+  ``exclude=True`` the store also keeps rescans from re-adding the paths);
+- ``approx=True`` searches are answered exactly, in ``lax.top_k``'s order:
+  the reference's ``lax.approx_max_k`` computes exactly that off the TPU,
+  and recall 1.0 meets its 0.95 target;
 - ``from_store`` opens an ``EmbeddingStore`` directory the reference wrote;
 - the corpus sketch (``build_sketch``, kept fresh across appends), the
   certified two-stage search that reads it (``search_twostage``, its
@@ -24,7 +28,7 @@ f32 or int8 rows:
   (``find_near_duplicates``), the certified sketch scan and the approximate
   candidate scan (``index/dupscan.py``).
 
-Not ported yet (they raise): bf16 rows, approximate top-k and device meshes.
+Not ported yet (it raises): device meshes.
 """
 
 from __future__ import annotations
@@ -39,8 +43,8 @@ import torch
 
 from image_search_tpu_torch.index import twostage
 from image_search_tpu_torch.index.store import EmbeddingStore
-from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, stream_scores_int8
-from image_search_tpu_torch.ops.topk import exact_topk
+from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queries_int8, row_norms, stream_scores_int8
+from image_search_tpu_torch.ops.topk import exact_topk, lax_topk
 
 log = logging.getLogger(__name__)
 
@@ -48,12 +52,13 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 _UPDATE_BLOCK = 4096  # rows per aligned append block
 DEFAULT_SLAB_ROWS = 1 << 20  # rows per full slab (int8 x 768 = 0.77 GB)
 
-QUANT_DTYPES = {None: torch.float32, "int8": torch.int8}
+QUANT_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 def _l2(x: torch.Tensor) -> torch.Tensor:
-    n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-    return x / torch.clamp(n, min=1e-12)
+    """Rows l2-normalized; each row's norm is independent of the batch
+    (``row_norms``)."""
+    return x / torch.clamp(row_norms(x), min=1e-12)
 
 
 def _gather_rows(slabs, scales, idx):
@@ -96,14 +101,19 @@ def _rocchio_queries(slabs, scales, norms, text_emb, sel_idx):
     idx = torch.clamp(sel_idx, min=0).reshape(-1)
     raw = _gather_rows(slabs, scales, idx) * _gather_1d(norms, idx)[:, None]
     raw = raw.reshape(B, m, -1) * mask[..., None]
-    sel_avg = raw.sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)[:, None]
+    total = raw[:, 0]
+    for j in range(1, m):  # in selection order at any B (a reduction's order follows the shape)
+        total = total + raw[:, j]
+    sel_avg = total / torch.clamp(mask.sum(dim=1), min=1.0)[:, None]
     return (sel_avg + text_emb.float()) * 0.5
 
 
-def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None):
+def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None, approx: bool = False):
     """Exact cosine top-k over the slab list; global row ids follow the slab
     concatenation order. ``pens`` (same slab layout, f32) is the additive
-    tombstone penalty, or None before the first removal."""
+    tombstone penalty, or None before the first removal. ``approx`` takes
+    ``lax.top_k``'s order (what the reference's ``approx_max_k`` returns
+    off the TPU) instead of ``exact_topk``'s two-level order."""
     parts = []
     start = 0
     if scales is not None:
@@ -118,7 +128,7 @@ def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None):
     else:
         q = _l2(queries.float())
         for i, slab in enumerate(slabs):
-            s = q @ slab.T
+            s = float_scores(q, slab)
             if pens is not None:
                 s = s + pens[i][None, :]
             n = slab.shape[0]
@@ -126,7 +136,7 @@ def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None):
             parts.append(torch.where(valid[None, :], s, torch.full_like(s, NEG_INF)))
             start += n
     scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    return exact_topk(scores, k)
+    return lax_topk(scores, k) if approx else exact_topk(scores, k)
 
 
 def _pow2_at_least(n: int, floor: int) -> int:
@@ -192,8 +202,6 @@ class VectorIndex:
         capacity: Optional[int] = None,
         mesh=None,
     ):
-        if quantize == "bfloat16":
-            raise NotImplementedError("bf16 index rows are not ported yet (use f32 or int8)")
         if quantize not in QUANT_DTYPES:
             raise ValueError(f"quantize must be one of {list(QUANT_DTYPES)}")
         if mesh is not None:
@@ -218,6 +226,8 @@ class VectorIndex:
         self._scale_slabs: Optional[List[torch.Tensor]] = [] if quantize == "int8" else None
         self._pen_slabs: List[torch.Tensor] = []
         self._removed = 0
+        # paths tombstoned in this process and not re-added since (was_removed)
+        self._dead_paths: set = set()
         # the corpus sketch (index/twostage.py): None until build_sketch();
         # kept fresh across appends by _update_sketch_incremental
         self._sketch: Optional[twostage.SketchState] = None
@@ -345,18 +355,31 @@ class VectorIndex:
         raise IndexError(gpos)
 
     def _quantize_host(self, normalized: np.ndarray):
+        """Normalized f32 rows -> (host rows tensor in the slab dtype, f32
+        scales or None). bf16 rounds to nearest even, as the reference's
+        ``astype(jnp.bfloat16)``."""
         if self.quantize == "int8":
             amax = np.abs(normalized).max(axis=1)
             scale = np.maximum(amax, 1e-12) / 127.0
             q = np.clip(np.round(normalized / scale[:, None]), -127, 127).astype(np.int8)
-            return q, scale.astype(np.float32)
-        return normalized, None
+            return torch.from_numpy(q), scale.astype(np.float32)
+        rows = torch.from_numpy(np.ascontiguousarray(normalized, np.float32))
+        return rows.to(self._row_dtype), None
 
     # -- mutation -------------------------------------------------------------
 
     def __len__(self) -> int:
         """Number of LIVE (searchable) rows."""
         return self._size - self._removed
+
+    @property
+    def removed_count(self) -> int:
+        return self._removed
+
+    def live_paths(self) -> List[str]:
+        """Snapshot of the searchable paths (tombstoned ones excluded)."""
+        with self._lock:
+            return list(self._row)
 
     @property
     def paths(self) -> List[str]:
@@ -390,13 +413,14 @@ class VectorIndex:
                 m = min(_UPDATE_BLOCK - gpos % _UPDATE_BLOCK, n - off)  # never straddles a slab
                 i, local = self._locate(gpos)
                 sl = slice(local, local + m)
-                self._emb_slabs[i][sl] = torch.from_numpy(np.ascontiguousarray(rows[off : off + m])).to(self.device)
+                self._emb_slabs[i][sl] = rows[off : off + m].to(self.device)
                 self._norm_slabs[i][sl] = torch.from_numpy(norms[off : off + m]).to(self.device)
                 if self._scale_slabs is not None:
                     self._scale_slabs[i][sl] = torch.from_numpy(scales[off : off + m]).to(self.device)
                 off += m
             for j, p in enumerate(paths):
                 self._row[p] = self._size + j
+                self._dead_paths.discard(p)  # re-added after a tombstone: live again
             self._paths.extend(paths)
             self._size += n
             return n
@@ -481,6 +505,7 @@ class VectorIndex:
                     removed.append(p)
             if not rows:
                 return 0, []
+            self._dead_paths.update(removed)
             by_slab: dict = {}
             for g in rows:
                 i, local = self._locate(g)
@@ -490,14 +515,25 @@ class VectorIndex:
             self._removed += len(rows)
             return len(rows), removed
 
-    def remove_paths(self, paths: Sequence[str]) -> int:
-        """Tombstone rows by path (masked, not compacted; with a store
-        attached they stay removed across restarts). Returns rows removed."""
+    def remove_paths(self, paths: Sequence[str], exclude: bool = False) -> int:
+        """Tombstone rows by path: masked, not compacted, so global ids stay
+        stable; with a store attached they stay removed across restarts, and
+        re-adding a path later inserts a fresh live row. ``exclude=True`` (an
+        explicit deletion by the user) also marks the paths excluded in the
+        store, so rescans skip them while their files exist; a plain removal
+        (a prune of vanished files) stays re-addable by a rescan. Returns the
+        number of rows removed."""
+        n, _ = self.remove_paths_report(paths, exclude=exclude)
+        return n
+
+    def remove_paths_report(self, paths: Sequence[str], exclude: bool = False) -> Tuple[int, List[str]]:
+        """:meth:`remove_paths`, also returning the paths whose rows were
+        tombstoned (request duplicates and unknown paths left out)."""
         with self._lock:
             n, removed = self._remove_in_memory(paths)
             if removed and self.store is not None:
-                self.store.tombstone(removed)
-            return n
+                self.store.tombstone(removed, exclude=exclude)
+            return n, removed
 
     # -- queries ---------------------------------------------------------------
 
@@ -522,9 +558,7 @@ class VectorIndex:
 
     def search(self, queries, k: int = 1000, approx: bool = False):
         """Raw query vectors [B, D] or [D] (numpy or tensor) -> (scores [B, k],
-        row indices [B, k])."""
-        if approx:
-            raise NotImplementedError("approximate search is not ported yet")
+        row indices [B, k]). ``approx``: ``lax.top_k``'s order (module doc)."""
         q = torch.as_tensor(queries, dtype=torch.float32)
         q = self._as_queries(q, q.numel() // self.dim)
         with self._lock:
@@ -534,20 +568,22 @@ class VectorIndex:
             k = self._clamp_k(k)
             slabs, _, scales, pens = self._snapshot()
             size = self._size
-        return self._to_host(*_search_local(slabs, size, q, k, scales, pens))
+        return self._to_host(*_search_local(slabs, size, q, k, scales, pens, approx))
 
-    def search_with_feedback(self, text_embedding, selected_paths: Sequence[str], k: int = 1000):
+    def search_with_feedback(self, text_embedding, selected_paths: Sequence[str], k: int = 1000,
+                             approx: bool = False):
         """The reference's refinement search (search.rs:34-77). Unknown paths
         are skipped; with no known selection this is the plain text search."""
         with self._lock:
             known = any(p in self._row for p in selected_paths)
         if not known:
-            return self.search(text_embedding, k)
+            return self.search(text_embedding, k, approx)
         return self.search_with_feedback_batch(
-            self._as_queries(text_embedding, 1), [list(selected_paths)], k
+            self._as_queries(text_embedding, 1), [list(selected_paths)], k, approx
         )
 
-    def search_with_feedback_batch(self, text_embeddings, selected_paths_list, k: int = 1000):
+    def search_with_feedback_batch(self, text_embeddings, selected_paths_list, k: int = 1000,
+                                   approx: bool = False):
         """B Rocchio searches in one pass. ``text_embeddings`` is [B, D] raw
         text vectors (numpy or device tensor); each selection list holds
         absolute paths, possibly empty (then that row is the plain search,
@@ -566,7 +602,7 @@ class VectorIndex:
         for b, r in enumerate(rows_list):
             sel[b, : len(r)] = r
         q = _rocchio_queries(slabs, scales, norms, text, torch.from_numpy(sel).to(self.device))
-        return self._to_host(*_search_local(slabs, size, q, k, scales, pens))
+        return self._to_host(*_search_local(slabs, size, q, k, scales, pens, approx))
 
     # -- the corpus sketch (index/twostage.py) ----------------------------------
 
@@ -598,7 +634,7 @@ class VectorIndex:
             est = twostage.estimate_certifiable_fraction(
                 sample, basis_np, size, k=est_k,
                 candidate_rows=twostage.DEFAULT_BLOCKS * twostage.BLOCK,
-                fs_slack=twostage.FULL_SCAN_SLACK["int8" if self.quantize == "int8" else "float32"],
+                fs_slack=twostage.FULL_SCAN_SLACK[twostage._slab_dtype_name(slabs[0])],
                 # bf16 sketch storage costs a data-derived ub_slack that is
                 # not known yet: charge the 0.01 the reference charges
                 ub_slack=0.01 if to_bf16 else 0.0,
@@ -821,9 +857,8 @@ class VectorIndex:
         last one padded with its final row, as the reference pads it), and
         neighbour pairs scoring >= threshold come back as (row_i, row_j,
         score), i < j, each once. ``progress(rows_done, rows_total)`` is
-        called after every batch. ``approx`` is served by the exact top-k:
-        the port has no approximate top-k, and an exact answer holds every
-        pair an approximate one would."""
+        called after every batch. ``approx`` takes ``lax.top_k``'s order, as
+        :meth:`search` does."""
         with self._lock:
             rows = sorted(self._row.values())
             if not rows:
@@ -839,7 +874,7 @@ class VectorIndex:
             idx = np.full((batch,), chunk[-1], np.int64)
             idx[: len(chunk)] = chunk
             q = _gather_rows(slabs, scales, torch.from_numpy(idx).to(self.device))
-            sc, nb = _search_local(slabs, size, q, k, scales, pens)
+            sc, nb = _search_local(slabs, size, q, k, scales, pens, approx)
             sc = sc[: len(chunk)].cpu().numpy()
             nb = nb[: len(chunk)].cpu().numpy().astype(np.int64)
             r = np.asarray(chunk, np.int64)[:, None]
@@ -907,6 +942,13 @@ class VectorIndex:
 
     def has_path(self, path: str) -> bool:
         return path in self._row
+
+    def was_removed(self, path: str) -> bool:
+        """Whether ``path``'s row was tombstoned in this process and not
+        re-added since: lets the engine honour an explicit removal of a path
+        already pruned while its file is absent (the store's tombstone log
+        covers a restart)."""
+        return path in self._dead_paths
 
     def get_raw_embeddings(self, paths: Sequence[str]) -> np.ndarray:
         """Stored raw vectors for the given paths (the search.rs:43-58 SELECT)."""

@@ -57,7 +57,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, stream_scores_int8
+from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queries_int8, stream_scores_int8
 from image_search_tpu_torch.ops.topk import exact_topk, stable_topk
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -200,7 +200,7 @@ SKETCH_CHUNK_ROWS = 262_144
 
 
 def sketch_slab(
-    slab: torch.Tensor,                  # [n, D] f32/int8 rows
+    slab: torch.Tensor,                  # [n, D] f32/bf16/int8 rows
     scale: Optional[torch.Tensor],       # [n] f32 for int8, else None
     basis: torch.Tensor,                 # [D, d_s] f32
     to_bf16: bool = False,
@@ -288,9 +288,15 @@ def _rescore_int8(slabs, scales, idx, qi, qs):
 
 
 def _rescore_float(slabs, idx, q):
-    """Exact rescore of per-query candidate rows idx [B, c] of f32 slabs:
-    equal to the full scan's scores up to f32 reduction order."""
-    return torch.einsum("bd,bcd->bc", q, _gather_candidates(slabs, idx))
+    """Exact rescore of per-query candidate rows idx [B, c] of f32 or bf16
+    slabs (bf16: the query cast to bf16, exact products, as the full scan):
+    equal to the full scan's scores up to f32 reduction order. Each query
+    has its own rows (a batched product, not ``float_scores``' one GEMM), so
+    bf16 operands are upcast: the products are exact either way."""
+    rows = _gather_candidates(slabs, idx)
+    if rows.dtype == torch.bfloat16:
+        q, rows = q.to(torch.bfloat16).float(), rows.float()
+    return torch.einsum("bd,bcd->bc", q, rows)
 
 
 def twostage_topk(
@@ -418,7 +424,7 @@ def twostage_topk_block(
     if is_int8:
         ex = stream_scores_int8(rows, qi, qs, torch.cat(rscale).reshape(n_rows), n_rows, rpens)
     else:
-        ex = qt_vec @ rows.T
+        ex = float_scores(qt_vec, rows)
         if rpens is not None:
             ex = ex + rpens[None, :]
     ex = torch.where(gid[None, :] < size, ex, torch.full_like(ex, NEG_INF))

@@ -6,7 +6,9 @@ and skipped; :func:`decode_image_bytes` decodes an uploaded query image,
 refusing one that declares more than ``MAX_QUERY_PIXELS``. Decoding uses PIL when it is importable (with the same JPEG
 draft downscale as the reference). Uncompressed 24-bit BMP -- a format the
 scanner accepts -- also has a small numpy reader, so a machine without PIL
-can still scan such a corpus; :func:`write_bmp24` writes one.
+can still scan such a corpus; :func:`write_bmp24` writes one. With a
+``ThumbCache`` (``ingest/thumbcache.py``) the pool reads each photo's cached
+tile and fully decodes only the misses.
 """
 
 from __future__ import annotations
@@ -117,16 +119,32 @@ def decode_image_bytes(data: bytes) -> Optional[np.ndarray]:
 
 
 class DecodePool:
-    """Thread-pool batch decoder: paths -> (kept_paths, arrays)."""
+    """Thread-pool batch decoder: paths -> (kept_paths, arrays).
 
-    def __init__(self, workers: int = 16):
+    With a ``thumb_cache`` every path is looked up in the tile cache first;
+    only misses pay a full decode, and the decoded tile is stored, so no
+    photo is fully decoded twice, across rescans and restarts."""
+
+    def __init__(self, workers: int = 16, thumb_cache=None):
         self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="decode")
         # batch orchestration runs on its own thread: submitting it to the
         # worker pool would deadlock at workers=1
         self._batcher = ThreadPoolExecutor(max_workers=2, thread_name_prefix="decode-batch")
+        self._thumbs = thumb_cache
+
+    def _decode_one(self, path: str) -> Optional[np.ndarray]:
+        if self._thumbs is not None:
+            tile = self._thumbs.get(path)
+            if tile is not None:
+                return tile
+            arr = decode_image(path)
+            if arr is None:
+                return None
+            return self._thumbs.put(path, arr)
+        return decode_image(path)
 
     def decode_batch(self, paths: Sequence[str]) -> Tuple[List[str], List[np.ndarray]]:
-        results = list(self._pool.map(decode_image, paths))
+        results = list(self._pool.map(self._decode_one, paths))
         kept_paths, images = [], []
         for path, arr in zip(paths, results):
             if arr is not None:

@@ -3,8 +3,9 @@
 Port of ``image_search_tpu/ingest/pipeline.py::scan_directory`` for one
 process: dedup before decode, then decode chunk N+1 on the pool while chunk N
 embeds on the device (the embed dispatch returns without waiting), then
-append chunk N to the index and its store. The multi-host SPMD scan is not
-ported yet.
+append chunk N to the index and its store. With a ``thumb_cache`` the decode
+reads cached tiles (``ingest/thumbcache.py``). The multi-host SPMD scan is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ class ScanStats:
     decode_failures: int = 0
     embedded: int = 0
     seconds: float = 0.0
-    pruned: int = 0  # always 0 here: --prune-on-scan is not ported yet
+    pruned: int = 0  # images tombstoned by --prune-on-scan
 
     @property
     def images_per_sec(self) -> float:
@@ -41,11 +42,12 @@ def scan_directory(
     chunk_size: int = 500,
     decode_workers: int = 16,
     skip_paths=None,
+    thumb_cache=None,
 ) -> ScanStats:
     """Embed every new image under ``media_dir`` into ``index``."""
     t0 = time.monotonic()
     stats = ScanStats()
-    pool = DecodePool(workers=decode_workers)
+    pool = DecodePool(workers=decode_workers, thumb_cache=thumb_cache)
     try:
         all_paths = find_images(media_dir)
         stats.found = len(all_paths)

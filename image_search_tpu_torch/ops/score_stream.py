@@ -1,5 +1,5 @@
-"""int8 full-scan scores: kernel B2, its plain PyTorch version, and the int8
-query quantizer.
+"""Full-scan scores: kernel B2 for int8 rows, its plain PyTorch version, the
+int8 query quantizer, and :func:`float_scores` for f32 and bf16 rows.
 
 ``stream_scores_int8`` is the port of ``image_search_tpu/ops/
 score_stream.py::stream_scores_int8`` (Pallas ``_kernel``/``_kernel_pen``).
@@ -19,6 +19,36 @@ from image_search_tpu_torch import _build
 
 NEG_INF = torch.finfo(torch.float32).min
 BN = 128  # slab rows per CTA tile of the kernel (csrc/score_stream.cu: kBN)
+NORM_ROWS = 32  # rows of every norm reduction: the batcher's largest batch
+
+
+def row_norms(x: torch.Tensor) -> torch.Tensor:
+    """l2 norms of the rows of [B, D] -> [B, 1], each reduced inside a block
+    of ``NORM_ROWS`` rows (zero rows pad the last). torch picks a
+    reduction's order by the tensor's shape on the card, so a query's norm
+    -- and with it its int8 rounding -- would depend on the other queries of
+    its batch; one block shape gives every row the same order at any B (a
+    batched search answers each query exactly as it answers it alone)."""
+    b = x.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, 0, -b % NORM_ROWS)).contiguous()
+    blocks = [torch.linalg.vector_norm(xp[i : i + NORM_ROWS], dim=-1, keepdim=True) for i in range(0, max(b, 1), NORM_ROWS)]
+    return (blocks[0] if len(blocks) == 1 else torch.cat(blocks))[:b]
+
+
+def float_scores(q, rows):
+    """l2-normalized f32 queries [B, D] x f32 or bf16 rows [n, D] -> [B, n]
+    f32 scores (the reference's ``shard_scores``). bf16 rows are dotted with
+    the query cast to bf16: every product is exact in f32 and the sums are
+    f32, so the scores leave in f32 (a bf16 output would round each score to
+    8 bits and tie thousands of rows at the top-k boundary). On the card that
+    is one cuBLAS GEMM with an f32 output; the CPU has none, so there both
+    operands are upcast (the same products, summed in f32)."""
+    if rows.dtype != torch.bfloat16:
+        return q @ rows.T
+    qb = q.to(torch.bfloat16)
+    if rows.device.type == "cuda":
+        return torch.mm(qb, rows.T, out_dtype=torch.float32)
+    return qb.float() @ rows.float().T
 
 
 def quantize_rows_int8(x: torch.Tensor):
@@ -49,7 +79,7 @@ def quantize_queries_int8(x: torch.Tensor):
     near .5 (about 0.4% of elements of small-integer queries, where exact
     ties are common). The port computes that form so that its int8 answers
     are the reference's bitwise."""
-    n = torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
+    n = torch.clamp(row_norms(x), min=1e-12)
     scale = torch.clamp((x / n).abs().amax(dim=-1, keepdim=True), min=1e-12) * (1.0 / 127.0)
     q = torch.clamp(torch.round(x / (n * scale)), -127, 127).to(torch.int8)
     return q, scale[..., 0]
@@ -104,7 +134,8 @@ def stream_scores_int8(rows, qi, qs, scales, limit: int, pens=None):
     rows [N, D] int8, qi [B, D] int8, qs [B] f32, scales [N] f32, pens [N] f32
     additive penalties (0 live, NEG_INF tombstoned) or None; rows at
     position >= ``limit`` score NEG_INF. One launch for any batch
-    (:func:`score_plan`)."""
+    (:func:`score_plan`). ``launches`` counts every launch,
+    ``penalty_launches`` those with ``pens`` (the reference's ``_kernel_pen``)."""
     if rows.device.type == "cpu":
         return scores_int8_reference(rows, qi, qs, scales, limit, pens)
     if rows.device.type != "cuda":
@@ -121,7 +152,10 @@ def stream_scores_int8(rows, qi, qs, scales, limit: int, pens=None):
     )
     _build.check(rc, "score kernel launch")
     stream_scores_int8.launches += 1
+    if pens is not None:
+        stream_scores_int8.penalty_launches += 1
     return out
 
 
 stream_scores_int8.launches = 0
+stream_scores_int8.penalty_launches = 0

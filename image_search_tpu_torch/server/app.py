@@ -18,9 +18,22 @@ app.py``), with byte-identical bodies for the same engine results:
   do not decode;
 - ``GET /metrics`` -- the counters, gauges and latencies of
   ``utils.metrics.global_metrics``, the ``corpus_size`` gauge and the model;
-- ``GET /health`` and ``GET /media/<path>`` (the photo directory).
+- ``POST /remove`` -- body ``{"images": ["media/...", ...]}``: the photos are
+  tombstoned and excluded from rescans, ``{"removed": n}``; with
+  ``"restore": true`` the exclusions are cleared instead, ``{"restored": n}``
+  (the next scan re-embeds the files); 400 on another body;
+- ``GET /health`` and ``GET /media/<path>`` (the photo directory);
+- the web client: ``GET /`` answers ``index.html``, ``GET /static/<file>``
+  the files of ``--static-dir`` (default: this package's copy of the
+  client, ``client/static``), and any other GET that no route claims
+  answers ``index.html`` too (the client's own routes). A path that
+  resolves outside its directory answers 404.
 
-``/remove``, the web client and micro-batching are not ported yet. Run it with the reference's flags::
+With ``--batch-window-ms`` > 0, concurrent ``/search`` requests are collected
+for that long after the first and answered by one ``engine.search_many``
+(:class:`SearchBatcher`), and the serving shapes are warmed on a background
+thread at startup and after every scan that embedded photos. Run it with the
+reference's flags::
 
     python -m image_search_tpu_torch.server.app --media-dir ~/Pictures \\
         --index-dir ./index --index-quantize int8 [--device cuda]
@@ -32,9 +45,12 @@ import json
 import logging
 import mimetypes
 import os
+import queue
 import threading
+import time
 import urllib.parse
 import uuid
+from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from image_search_tpu_torch.server import args as server_args
@@ -45,6 +61,114 @@ from image_search_tpu_torch.utils.metrics import global_metrics
 log = logging.getLogger(__name__)
 
 MAX_BODY = 16 * 1024 * 1024
+CLIENT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "client", "static")
+
+
+class SearchBatcher:
+    """Coalesces concurrent searches, plain and feedback alike, into one
+    ``engine.search_many``: one queue and one worker thread. The worker
+    takes the first request, collects more for ``window_ms`` after it (at
+    most ``max_batch`` in all) and answers the batch from one text-tower
+    batch and one index pass; each request's ``referenced_images`` ride
+    along as its own selection row, and an empty selection is the plain
+    search bitwise. ``stop`` answers every request still queued with an
+    error, so no handler waits forever."""
+
+    def __init__(self, engine: SearchEngine, window_ms: float, max_batch: int = 32):
+        self.engine = engine
+        self.window = window_ms / 1e3
+        self.max_batch = max_batch
+        self._queue: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()  # orders submit's check-and-put against stop
+        self._stopped = False
+        self._thread = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, name="search-batcher", daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout: float = 60.0) -> None:
+        """Fail every queued request at once (a batch already running is
+        answered when it ends), then end the worker."""
+        with self._lock:
+            self._stopped = True
+        self._drain()
+        self._queue.put(None)  # wakes the worker
+        if self._thread is not None:
+            self._thread.join(timeout)
+        self._drain()
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if item is not None:
+                _fail([item])
+
+    def submit(self, query: str, referenced_images=()):
+        """Blocks until the batch holding this request is answered -> its
+        result list; raises if the batch failed or the batcher stopped."""
+        fut: Future = Future()
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("search batcher stopped")
+            self._queue.put((query, tuple(referenced_images), fut))
+        return fut.result()
+
+    def _run(self) -> None:
+        while True:
+            first = self._queue.get()
+            if first is None:
+                return
+            batch, stopping = [first], False
+            deadline = time.monotonic() + self.window
+            while len(batch) < self.max_batch:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    item = self._queue.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if item is None:
+                    stopping = True
+                    break
+                batch.append(item)
+            if stopping:
+                _fail(batch)
+                return
+            try:
+                results = self.engine.search_many([q for q, _, _ in batch], [sel for _, sel, _ in batch])
+            except Exception as err:  # answered per request
+                for _, _, fut in batch:
+                    fut.set_exception(err)
+                continue
+            for (_, _, fut), res in zip(batch, results):
+                fut.set_result(res)
+
+
+def _fail(batch) -> None:
+    for _, _, fut in batch:
+        if not fut.done():
+            fut.set_exception(RuntimeError("search batcher stopped"))
+
+
+def _spawn_warmup(engine: SearchEngine, batcher) -> None:
+    """Warm the serving shapes on a background thread (with the batcher
+    only, as the reference does); requests arriving meanwhile share the
+    card as usual."""
+    if batcher is None:
+        return
+
+    def warm():
+        try:
+            engine.warm_serving_buckets(batcher.max_batch)
+        except Exception:
+            log.exception("serving warmup failed (non-fatal)")
+
+    threading.Thread(target=warm, name="serving-warmup", daemon=True).start()
 
 
 class _DupJob:
@@ -63,7 +187,7 @@ def _dup_progress() -> float:
     return global_metrics.snapshot()["gauges"].get("duplicate_scan_progress", 0.0)
 
 
-def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
+def _handler_class(engine: SearchEngine, scan_lock: threading.Lock, static_dir: str, batcher):
     dup_lock = threading.Lock()  # single-flight: one duplicate scan at a time
     jobs_lock = threading.Lock()  # guards `jobs` (check-then-start of a job)
     jobs: dict = {}  # "last": the running or last finished async job
@@ -114,7 +238,10 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
                 )
             if path.startswith("/" + MEDIA_PREFIX):
                 return self._media(urllib.parse.unquote(path[1:]))
-            self._json(404, {"error": "not found"})
+            if path.startswith("/static/"):
+                return self._static(urllib.parse.unquote(path[len("/static/"):]))
+            # "/" and the client's own routes (the SPA fallback)
+            self._file(os.path.join(static_dir, "index.html"))
 
         def do_POST(self):
             url = urllib.parse.urlsplit(self.path)
@@ -124,14 +251,19 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
             body = self.rfile.read(n)
             if url.path == "/search_image":
                 return self._search_image(body, urllib.parse.parse_qs(url.query, keep_blank_values=True))
+            if url.path == "/remove":
+                return self._remove(body)
             if url.path != "/search":
-                return self._json(404, {"error": "not found"})
+                return self._json(405, {"error": "method not allowed"})
             try:
                 params = SearchParams.from_json(json.loads(body))
             except Exception:
                 return self._json(400, {"error": "invalid SearchParams"})
             try:
-                images = engine.search(params.q, params.referenced_images)
+                if batcher is not None:
+                    images = batcher.submit(params.q, params.referenced_images)
+                else:
+                    images = engine.search(params.q, params.referenced_images)
             except Exception:
                 log.exception("search failed")
                 return self._send(500, b"")
@@ -153,6 +285,21 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
                 return self._send(500, b"")
             self._send(200, engine.render_images_json(images))
 
+        def _remove(self, body: bytes):
+            try:
+                req = json.loads(body)
+                images = list(req["images"])
+                restore = bool(req.get("restore", False))
+            except Exception:
+                return self._json(400, {"error": 'expected {"images": [...]}'})
+            try:
+                if restore:
+                    return self._json(200, {"restored": engine.restore_images(images)})
+                return self._json(200, {"removed": engine.remove_images(images)})
+            except Exception:
+                log.exception("remove failed")
+                return self._send(500, b"")
+
         def _scan(self):
             with scan_lock:  # single-flight: concurrent scans would double-decode
                 try:
@@ -160,6 +307,9 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
                 except Exception:
                     log.exception("Error embedding images")
                     return self._send(200, b"")  # the reference always answers 200
+            if stats.embedded:
+                # the corpus grew (a server that started empty warmed nothing)
+                _spawn_warmup(engine, batcher)
             self._json(
                 200,
                 {
@@ -228,19 +378,48 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock):
             abs_path = engine.to_abs_path(media_path)
             if abs_path is None or not os.path.isfile(abs_path):
                 return self._json(404, {"error": "not found"})
-            with open(abs_path, "rb") as f:
+            self._file(abs_path)
+
+        def _static(self, rel: str):
+            root = os.path.realpath(static_dir)
+            # realpath resolves "..", absolute parts and symlinks alike
+            full = os.path.realpath(os.path.join(root, rel))
+            if not full.startswith(root + os.sep) or not os.path.isfile(full):
+                return self._json(404, {"error": "not found"})
+            self._file(full)
+
+        def _file(self, path: str):
+            with open(path, "rb") as f:
                 data = f.read()
-            ctype = mimetypes.guess_type(abs_path)[0] or "application/octet-stream"
-            self._send(200, data, ctype)
+            self._send(200, data, mimetypes.guess_type(path)[0] or "application/octet-stream")
 
     return Handler
 
 
-def make_server(engine: SearchEngine, addr: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    request_queue_size = 128  # the listen backlog (socketserver's 5 resets concurrent clients)
+    batcher = None
+
+    def server_close(self) -> None:
+        super().server_close()
+        if self.batcher is not None:
+            self.batcher.stop()
+
+
+def make_server(engine: SearchEngine, addr: str = "127.0.0.1", port: int = 0, static_dir=None,
+                batch_window_ms: float = 0.0) -> ThreadingHTTPServer:
     """A bound server for ``engine`` (port 0 picks a free port); call
-    ``serve_forever`` on it, and ``shutdown`` + ``server_close`` to stop."""
-    server = ThreadingHTTPServer((addr, port), _handler_class(engine, threading.Lock()))
-    server.daemon_threads = True
+    ``serve_forever`` on it, and ``shutdown`` + ``server_close`` to stop.
+    ``batch_window_ms`` > 0 starts the search batcher and the background
+    warm-up (``server_close`` stops the batcher)."""
+    batcher = SearchBatcher(engine, batch_window_ms) if batch_window_ms > 0 else None
+    handler = _handler_class(engine, threading.Lock(), static_dir or CLIENT_DIR, batcher)
+    server = _Server((addr, port), handler)
+    if batcher is not None:
+        server.batcher = batcher
+        batcher.start()
+        _spawn_warmup(engine, batcher)
     return server
 
 
@@ -265,7 +444,7 @@ def main(argv=None) -> None:
     )
     args, device = parse_args(argv)
     engine = SearchEngine(args, device=device)
-    server = make_server(engine, args.addr, args.port)
+    server = make_server(engine, args.addr, args.port, args.static_dir, args.batch_window_ms)
     log.info("serving on http://%s:%d (media: %s)", args.addr, server.server_port, engine.media_dir)
     try:
         server.serve_forever()

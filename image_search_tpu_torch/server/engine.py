@@ -10,12 +10,17 @@ groups by the reference's three routes (``find_duplicate_groups``). With
 restored rows and after every scan that embedded rows) and searches take the
 certified two-stage path: an all-cold batch as one queued tokens -> text
 tower -> Rocchio -> two-stage run, other batches through the two-stage
-feedback batch; the answers are the full scan's either way.
+feedback batch; the answers are the full scan's either way. With
+``--search-approx`` searches skip the fused and two-stage paths and take the
+index's approximate top-k (answered exactly, in ``lax.top_k``'s order).
+``remove_images`` / ``restore_images`` serve ``POST /remove``; with
+``--prune-on-scan`` a scan tombstones photos whose files are gone;
+``--thumb-cache`` decodes from cached tiles; ``warm_serving_buckets`` runs
+each serving shape once before live traffic (``--batch-window-ms``).
 
 The engine runs on an explicit device (default ``cuda``). Flags for what is
-not ported yet raise at construction: the approximate search, meshes, bf16
-index rows, micro-batching, the thumbnail cache, pruning on scan,
-``--from-hf`` and the profiler.
+not ported yet raise at construction: meshes, ``--from-hf`` and the
+profiler.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from image_search_tpu_torch import check_precision
+from image_search_tpu_torch import _build, check_precision
 from image_search_tpu_torch.config import get_config
 from image_search_tpu_torch.index.index import NEG_INF, EmbeddingStore, VectorIndex
 from image_search_tpu_torch.ingest.decode import decode_image_bytes
@@ -50,18 +55,8 @@ DEMO_SEED = 0
 def unsupported_flags(args) -> List[str]:
     """Reference flags this port cannot serve yet, as they were given."""
     out = []
-    if args.search_approx:
-        out.append("--search-approx")
     if args.mesh_data is not None or args.mesh_model != 1:
         out.append("--mesh-data/--mesh-model")
-    if args.index_quantize == "bfloat16":
-        out.append("--index-quantize bfloat16")
-    if args.batch_window_ms > 0:
-        out.append("--batch-window-ms")
-    if args.thumb_cache:
-        out.append("--thumb-cache")
-    if args.prune_on_scan:
-        out.append("--prune-on-scan")
     if args.from_hf:
         out.append("--from-hf")
     if args.profiler_port is not None:
@@ -91,6 +86,12 @@ class SearchEngine:
         self._text_lock = threading.Lock()
         self._wire_cache: dict = {}
         self._frag_cache: dict = {}
+        self.thumb_cache = None
+        if args.thumb_cache:
+            from image_search_tpu_torch.ingest.thumbcache import ThumbCache
+
+            self.thumb_cache = ThumbCache(args.thumb_cache)
+            log.info("thumbnail cache enabled at %s", args.thumb_cache)
         store = EmbeddingStore(args.index_dir, self.cfg.projection_dim)
         self._excluded = store.excluded_paths()
         self.index = VectorIndex(
@@ -213,18 +214,19 @@ class SearchEngine:
         with global_metrics.timer("image_embed"):
             emb = self.embedder.embed_images_async([arr], min_bucket=1)[:1]
         selected = [p for p in (self._resolve_selection(m) for m in referenced_images) if p is not None]
-        use_twostage = self.args.search_twostage and self.index.sketch_fresh
+        approx = self.args.search_approx
+        use_twostage = self.args.search_twostage and not approx and self.index.sketch_fresh
         with global_metrics.timer("index_search"):
             if selected and use_twostage:
                 scores, idx = self.index.search_twostage_feedback_batch(emb, [selected], k)
                 self._publish_twostage_gauges()
             elif selected:
-                scores, idx = self.index.search_with_feedback(emb, selected, k)
+                scores, idx = self.index.search_with_feedback(emb, selected, k, approx=approx)
             elif use_twostage:
                 scores, idx = self.index.search_twostage(emb, k)
                 self._publish_twostage_gauges()
             else:
-                scores, idx = self.index.search(emb, k)
+                scores, idx = self.index.search(emb, k, approx=approx)
         global_metrics.inc("searches")
         global_metrics.inc("image_searches")
         if selected:
@@ -239,9 +241,9 @@ class SearchEngine:
         ``--twostage-max-batch`` queries takes the two-stage path: when no
         query is in the text cache, the fused tokens -> tower -> Rocchio ->
         two-stage run (``_search_many_fused``); otherwise the two-stage
-        feedback batch on the cached and new embeddings. (The reference's
-        other guards, no approximate search and no mesh, hold here always:
-        both raise at construction.)"""
+        feedback batch on the cached and new embeddings. ``--search-approx``
+        turns both two-stage paths off. (The reference's other guard, no
+        mesh, holds here always: a mesh raises at construction.)"""
         k = k or self.args.k
         queries = list(queries)
         sel_lists = [
@@ -254,8 +256,9 @@ class SearchEngine:
             hit = self._cache_get(q)
             if hit is not None:
                 local[q] = hit
+        approx = self.args.search_approx
         use_twostage = (
-            self.args.search_twostage and self.index.sketch_fresh
+            self.args.search_twostage and not approx and self.index.sketch_fresh
             and len(queries) <= self.args.twostage_max_batch
         )
         if not local and use_twostage and self.embedder.tokenizer is not None:
@@ -280,7 +283,7 @@ class SearchEngine:
             else:
                 # the batched feedback program even for all-plain batches: an
                 # empty selection IS the plain search, bitwise
-                scores, idx = self.index.search_with_feedback_batch(q_mat, sel_lists, k)
+                scores, idx = self.index.search_with_feedback_batch(q_mat, sel_lists, k, approx=approx)
         self._inc_search_metrics(len(queries), n_feedback)
         return [self._format_results(scores[b], idx[b]) for b in range(len(queries))]
 
@@ -320,6 +323,65 @@ class SearchEngine:
         self._publish_twostage_gauges()
         global_metrics.inc("fused_searches", B)
         return [self._format_results(scores[b], idx[b]) for b in range(B)]
+
+    def warm_serving_buckets(self, max_batch: int = 32) -> int:
+        """Run every serving shape once before live traffic, so that no
+        request pays for a first use on the card: the kernel library's load
+        (its nvcc build on a cold cache), cuBLAS's handle and workspace, the
+        caching allocator's growth at each batch bucket {8, 16, ...,
+        ``max_batch``} of the text tower and the feedback program, with
+        ``--search-twostage`` the two-stage batch and the fused token path
+        at each share {1, 2, 4, ...} up to ``--twostage-max-batch``, and the
+        query-by-image path (the vision tower at B=1 and the ingest bucket).
+        The port compiles no programs ahead of time; each call runs eagerly
+        once. The embedder is called directly, so no text-cache entry is
+        left behind. Returns the number of batch buckets warmed; sets the
+        ``serving_warmup_done`` gauge."""
+        if self.device.type == "cuda":
+            _build.lib()  # the kernels' first use: their build or load
+        if len(self.index) == 0:
+            global_metrics.gauge("serving_warmup_done", 1.0)
+            return 0
+        sizes, b = [], 8
+        while True:
+            sizes.append(min(b, max_batch))
+            if b >= max_batch:
+                break
+            b *= 2
+        dim, k, approx = self.cfg.projection_dim, self.args.k, self.args.search_approx
+        for n in sizes:
+            self.embedder.embed_texts_device([f"\0warm{n}_{i}" for i in range(n)])
+            self.index.search_with_feedback_batch(np.zeros((n, dim), np.float32), [[] for _ in range(n)], k,
+                                                  approx=approx)
+        twostage_on = self.args.search_twostage and not approx and self.index.sketch_fresh
+        if twostage_on:
+            # by-construction certificate failures of the zero query must not
+            # count toward the adaptive disable
+            r, tmb = 1, max(1, self.args.twostage_max_batch)
+            while True:
+                self.index.search_twostage_feedback_batch(
+                    np.zeros((r, dim), np.float32), [[] for _ in range(r)], k, count_failures=False
+                )
+                if self.embedder.tokenizer is not None:
+                    ids = self.embedder.tokenizer([f"\0warm_fused_{i}" for i in range(r)])
+                    self.index.search_twostage_fused_tokens(
+                        self.embedder.encode_text_fn, ids, [[] for _ in range(r)], k, count_failures=False
+                    )
+                if r >= tmb:
+                    break
+                r *= 2
+        zq = np.zeros((1, dim), np.float32)
+        if twostage_on:
+            self.index.search_twostage(zq, k, count_failures=False)
+        else:
+            self.index.search(zq, k, approx=approx)
+        self.embedder.embed_images_async([np.zeros((256, 256, 3), np.uint8)], min_bucket=1)
+        self.embedder.embed_images([np.zeros((512, 512, 3), np.uint8)])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        global_metrics.gauge("serving_warmup_done", 1.0)
+        log.info("serving warmup: %d batch buckets run", len(sizes))
+        return len(sizes)
 
     def _wire_row(self, row: int) -> dict:
         """Memoized ``{"id", "image_path"}`` for an index row (id = urlencoded
@@ -377,16 +439,98 @@ class SearchEngine:
                 self._text_cache.pop(next(iter(self._text_cache)), None)
             self._text_cache[query] = emb
 
+    def remove_images(self, media_paths) -> int:
+        """``POST /remove``: tombstone the photos AND exclude them, so that a
+        rescan does not bring them back while their files remain on disk.
+        Returns the rows removed."""
+        resolved = [p for p in (self._resolve_selection(m) for m in media_paths) if p is not None]
+        n, removed = self.index.remove_paths_report(resolved, exclude=True)
+        # only the rows really tombstoned become exclusions, not request
+        # duplicates or paths the store never held
+        self._excluded.update(removed)
+        if n:
+            global_metrics.inc("removed_images", n)
+        # a path already pruned (its file vanished) has no live row, yet the
+        # user's removal must still keep a rescan from re-adding it if the
+        # file comes back; a rowless path counts only if its file exists or
+        # it was tombstoned (in this process, or in the store's log), so
+        # paths never indexed do not pollute the exclusions
+        gone = set(removed)
+        candidates = [p for p in dict.fromkeys(resolved) if p not in gone and p not in self._excluded]
+        tombstoned: set = set()
+        if any(not os.path.exists(p) for p in candidates):
+            store = self.index.store
+            tombstoned = store.tombstoned_paths() if store is not None else set()
+        leftovers = [p for p in candidates if os.path.exists(p) or self.index.was_removed(p) or p in tombstoned]
+        if leftovers:
+            self._excluded.update(leftovers)
+            if self.index.store is not None:
+                self.index.store.exclude_paths(leftovers)
+        return n
+
+    def restore_images(self, media_paths) -> int:
+        """Undo ``POST /remove`` exclusions (``image_path`` or the urlencoded
+        ``id``): the next scan re-embeds the files. Returns the exclusions
+        cleared."""
+        if self.index.store is None:
+            return 0
+        excluded = self.index.store.excluded_paths()
+        resolved = []
+        for m in media_paths:
+            cands = self._abs_candidates(m)
+            # the candidate actually excluded (removed paths are no longer
+            # in the index, so has_path cannot pick it)
+            pick = next((c for c in cands if c in excluded), cands[0] if cands else None)
+            if pick is not None:
+                resolved.append(pick)
+        if not resolved:
+            return 0
+        n = self.index.store.clear_exclusion(resolved)
+        for p in resolved:
+            self._excluded.discard(p)
+        return n
+
+    def prune_missing(self) -> int:
+        """Tombstone indexed photos whose files no longer exist (one walk of
+        the media tree, not a stat per row). Refuses when the tree looks
+        unavailable -- missing, or yielding no image while the index holds
+        rows -- so that an unmounted disk does not tombstone the corpus."""
+        from image_search_tpu_torch.ingest.walk import iter_images
+
+        live = self.index.live_paths()
+        if not live:
+            return 0
+        if not os.path.isdir(self.media_dir):
+            log.warning("prune skipped: media dir %s is missing/unmounted", self.media_dir)
+            return 0
+        found = set(iter_images(self.media_dir))
+        if not found:
+            log.warning(
+                "prune skipped: media dir %s yielded no image while the index holds %d; "
+                "treating it as unavailable, not emptied", self.media_dir, len(live),
+            )
+            return 0
+        missing = [p for p in live if p not in found]
+        n = self.index.remove_paths(missing) if missing else 0
+        if n:
+            global_metrics.inc("pruned_missing", n)
+            log.info("pruned %d missing images from the index", n)
+        return n
+
     def scan(self) -> ScanStats:
         """The ``GET /scan`` ingest (search.rs:104-126). Paths the store
         marks excluded (removed by the user) are not re-embedded. With
-        ``--search-twostage`` a scan that embedded rows rebuilds the sketch."""
+        ``--prune-on-scan`` photos whose files are gone are tombstoned; with
+        ``--search-twostage`` a scan that embedded rows then rebuilds the
+        sketch."""
         with global_metrics.timer("scan"):
             stats = scan_directory(
                 self.embedder, self.index, self.media_dir,
                 chunk_size=self.args.chunk_size, decode_workers=self.args.decode_workers,
-                skip_paths=self._excluded,
+                skip_paths=self._excluded, thumb_cache=self.thumb_cache,
             )
+        if self.args.prune_on_scan:
+            stats.pruned = self.prune_missing()
         if self.args.search_twostage and stats.embedded:
             with global_metrics.timer("sketch_build"):
                 self._build_sketch()

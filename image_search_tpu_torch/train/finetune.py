@@ -10,8 +10,10 @@ Data layout: every image file with a same-stem ``.txt`` sidecar caption
 (``dog.jpg`` + ``dog.txt``). The checkpoint files are the reference's, so
 either package reads what the other writes. Training keeps f32 master weights
 and computes in bf16 on the card (f32 on the CPU); it runs on the card unless
-``--device cpu`` is given. Flags for what is not ported (device meshes,
-FSDP, the thumbnail cache) raise at startup.
+``--device cpu`` is given. ``--thumb-cache DIR`` decodes from the tiles the
+server's cache keeps (``ingest/thumbcache.py``): epochs after the first read
+no original. Flags for what is not ported (device meshes, FSDP) raise at
+startup.
 """
 
 from __future__ import annotations
@@ -104,8 +106,6 @@ def run_finetune(
     from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
     from image_search_tpu_torch.train.contrastive import adamw, make_train_step
 
-    if thumb_cache is not None:
-        raise NotImplementedError("the thumbnail cache is not ported yet (ROADMAP A.6b)")
     device = torch.device(device)
     if compute_dtype is None:
         compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -122,7 +122,7 @@ def run_finetune(
             state = restored
 
     rng = random.Random(seed)
-    pool = DecodePool(workers=8)
+    pool = DecodePool(workers=8, thumb_cache=thumb_cache)
 
     def make_batch():
         """Decode + pack + tokenize one batch -- host work only. Runs on the
@@ -209,14 +209,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--eval-dir", default=None,
                     help="held-out (image, .txt caption) pairs: retrieval "
                          "R@k is measured before and after training (train/eval.py)")
-    ap.add_argument("--thumb-cache", default="", help="not ported yet: raises")
+    ap.add_argument("--thumb-cache", default="",
+                    help="persistent decoded-tile cache dir (shareable with the server's "
+                         "--thumb-cache): epochs after the first skip the full decode")
     ap.add_argument("--device", default="cuda", help="torch device to train on (default cuda)")
     args = ap.parse_args(argv)
 
     for flag, on in (("--mesh-data", args.mesh_data is not None), ("--mesh-model", args.mesh_model > 1),
-                     ("--fsdp", args.fsdp), ("--thumb-cache", bool(args.thumb_cache))):
+                     ("--fsdp", args.fsdp)):
         if on:
-            raise NotImplementedError(f"{flag}: multi-device training and the thumbnail cache are not ported yet")
+            raise NotImplementedError(f"{flag}: multi-device training is not ported yet")
 
     import torch
 
@@ -260,11 +262,17 @@ def main(argv: Optional[List[str]] = None) -> None:
         log.info("retrieval %s (%d pairs): %s", tag, n, metrics)
 
     eval_retrieval(model, "BEFORE")
+    thumb_cache = None
+    if args.thumb_cache:
+        from image_search_tpu_torch.ingest.thumbcache import ThumbCache
+
+        thumb_cache = ThumbCache(args.thumb_cache)
     trained, losses = run_finetune(
         model, cfg, tokenizer, pairs,
         batch_size=args.batch_size, steps=args.steps, learning_rate=args.lr,
         compute_dtype=compute_dtype, remat=args.remat, remat_policy=args.remat_policy,
-        checkpoint_dir=args.checkpoint_dir, save_every=args.save_every, device=device,
+        checkpoint_dir=args.checkpoint_dir, save_every=args.save_every, thumb_cache=thumb_cache,
+        device=device,
     )
     save_checkpoint(args.out, params_to_jax(trained), cfg)
     log.info("wrote %s (final loss %.4f)", args.out, losses[-1] if losses else float("nan"))

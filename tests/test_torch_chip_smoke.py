@@ -128,3 +128,20 @@ def test_twostage_phase_runs_after_the_server_phases():
     mod = _load()
     assert mod.TWOSTAGE_ROWS == 10_000_000 and mod.TWOSTAGE_SLAB % 4096 == 0
     assert "ts_launches" in ast.unparse(main)
+
+
+def test_serving_phase_runs_after_the_two_stage_phase():
+    """``main`` runs the rest of the one-card server (batcher, /remove,
+    thumbnail cache, bf16 rows, --search-approx) after the two-stage phase,
+    whose corpus it frees, and its launches reach the kernels line."""
+    import ast
+
+    with open(SCRIPT) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    phases = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and getattr(n.func, "id", "").startswith("phase_")]
+    assert phases.index("phase_serving") == phases.index("phase_twostage") + 1
+    assert "sv_launches" in ast.unparse(main)
+    mod = _load()
+    assert mod.BF16_ROWS == 10_000_000 and (mod.SERVE_CLIENTS, mod.SERVE_ROUNDS) == (32, 8)

@@ -983,3 +983,75 @@ def test_fused_twostage_path_never_syncs_with_the_host(dev):
     want = index.search_with_feedback_batch(text_np, [["p5", "p9"], []], 100)
     assert ok
     np.testing.assert_array_equal(s_np, want[0])
+
+
+def test_bf16_full_scan_scores_in_f32_and_matches_the_upcast_plain_top_k(dev):
+    """bf16 rows (--index-quantize bfloat16): the full scan's scores leave
+    the GEMM in f32 (a bf16 output would round them to 8 bits and tie
+    thousands of rows), within 1e-5 of the plain version (both operands
+    upcast to f32: the same exact products, summed in another order), and
+    its ids equal the plain top-k's away from near-ties."""
+    from image_search_tpu_torch.index.index import _l2, _search_local
+    from image_search_tpu_torch.ops.score_stream import float_scores
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    n, k = 300_017, 1000
+    rows = F.normalize(torch.randn(n, 768, generator=g, device=dev), dim=-1).bfloat16()
+    slabs = (rows[:262_144].contiguous(), torch.cat([rows[262_144:], rows.new_zeros(4096 - (n - 262_144) % 4096, 768)]))
+    q = torch.randn(4, 768, generator=g, device=dev)
+    s = float_scores(_l2(q), slabs[0])
+    assert s.dtype == torch.float32 and not torch.equal(s.bfloat16().float(), s)
+    got_s, got_i = _search_local(slabs, n, q, k)
+    plain = _l2(q).bfloat16().float() @ rows.float().T
+    want_s, want_i = torch.topk(plain, k, dim=-1)
+    assert got_s.dtype == torch.float32 and (got_s - want_s).abs().max().item() <= 1e-5
+    near = torch.zeros_like(got_s, dtype=torch.bool)
+    near[:, 1:] |= (got_s[:, 1:] - got_s[:, :-1]).abs() <= 1e-5
+    near[:, :-1] |= (got_s[:, :-1] - got_s[:, 1:]).abs() <= 1e-5
+    assert torch.equal(got_i[~near], want_i[~near])
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 32, 40])
+def test_query_quantization_is_the_same_at_any_batch_on_the_card(dev, b):
+    """torch's CUDA reductions pick their order by shape; the query norms
+    are reduced in blocks of ``NORM_ROWS`` rows, so each row of a batch of b
+    quantizes bitwise as the same query alone."""
+    from image_search_tpu_torch.ops.score_stream import quantize_queries_int8
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(b, 768, generator=g, device=dev) * 3
+    q, s = quantize_queries_int8(x)
+    for i in range(b):
+        qa, sa = quantize_queries_int8(x[i : i + 1])
+        assert torch.equal(q[i : i + 1], qa) and torch.equal(s[i : i + 1], sa)
+
+
+def test_removal_runs_the_penalty_variant_bitwise_the_plain_version(dev):
+    """After remove_paths the int8 full scan passes the tombstone penalties
+    to B2 (the reference's _kernel_pen): each slab's scores equal
+    scores_int8_reference with ``pens`` bitwise, and searches omit the
+    removed rows."""
+    import numpy as np
+
+    from image_search_tpu_torch.index.index import VectorIndex
+    from image_search_tpu_torch.ops.score_stream import quantize_queries_int8
+
+    rng = np.random.default_rng(3)
+    emb = rng.normal(size=(9000, 768)).astype(np.float32)
+    paths = [f"/p/{i}" for i in range(len(emb))]
+    index = VectorIndex(768, device=dev, quantize="int8", min_capacity=4096, slab_rows=4096)
+    index.add(paths, emb)
+    dead = [paths[i] for i in (0, 17, 4095, 4096, 8999)]
+    assert index.remove_paths(dead) == 5
+    q = torch.from_numpy(emb[[0, 17, 4096, 100]]).to(dev)
+    n0, p0 = stream_scores_int8.launches, stream_scores_int8.penalty_launches
+    s, i = index.search(q, k=50)
+    assert stream_scores_int8.penalty_launches - p0 == stream_scores_int8.launches - n0 == len(index._emb_slabs)
+    assert not {0, 17, 4095, 4096, 8999} & set(i[s > NEG_INF / 2].tolist())
+    slabs, _, scales, pens = index._snapshot()
+    qi, qs = quantize_queries_int8(q)
+    start = 0
+    for j, slab in enumerate(slabs):
+        got = stream_scores_int8(slab, qi, qs, scales[j], index._size - start, pens[j])
+        assert torch.equal(got, scores_int8_reference(slab, qi, qs, scales[j], index._size - start, pens[j]))
+        start += slab.shape[0]

@@ -40,6 +40,7 @@ PORT_MODULES = [
     "image_search_tpu_torch.index.index",
     "image_search_tpu_torch.ingest.walk",
     "image_search_tpu_torch.ingest.decode",
+    "image_search_tpu_torch.ingest.thumbcache",
     "image_search_tpu_torch.ingest.pipeline",
     "image_search_tpu_torch.server.wire",
     "image_search_tpu_torch.server.args",
@@ -199,7 +200,40 @@ def _copy_decode():
         assert port.decode_image_bytes(bad) is None and ref.decode_image_bytes(bad) is None
 
 
-@pytest.mark.parametrize("module", ["config", "tokenizer", "store", "args_and_wire", "walk", "eval", "decode"])
+def _copy_client():
+    """The web client the port serves is the reference's, so
+    tests/test_client_*.py (jsdom) cover it too: the scripts and the style
+    sheet byte for byte, index.html but for one path in its header
+    comment."""
+    ref = os.path.join(REPO, "image_search_tpu", "client", "static")
+    port = os.path.join(REPO, "image_search_tpu_torch", "client", "static")
+    names = sorted(os.listdir(ref))
+    assert names == sorted(os.listdir(port)) == ["app.js", "index.html", "logic.js", "style.css"]
+    for name in names:
+        with open(os.path.join(ref, name), "rb") as a, open(os.path.join(port, name), "rb") as b:
+            want, got = a.read(), b.read()
+        if name == "index.html":  # line 3: the path of the original project's client sources
+            want, got = want.splitlines(), got.splitlines()
+            assert len(want) == len(got) and [i for i in range(len(want)) if want[i] != got[i]] == [2]
+            del want[2], got[2]
+        assert got == want, name
+
+
+def _copy_thumbcache():
+    """The port's copy differs from the reference's in its docstring only."""
+    import ast
+
+    trees = []
+    for pkg in ("image_search_tpu", "image_search_tpu_torch"):
+        with open(os.path.join(REPO, pkg, "ingest", "thumbcache.py")) as f:
+            tree = ast.parse(f.read())
+        tree.body = tree.body[1:]  # the module docstring
+        trees.append(ast.dump(tree))
+    assert trees[0] == trees[1]
+
+
+@pytest.mark.parametrize("module", ["config", "tokenizer", "store", "args_and_wire", "walk", "eval", "decode",
+                                    "client", "thumbcache"])
 def test_copies_behave_as_the_jax_packages(module, tmp_path):
     fn = globals()["_copy_" + module]
     fn(tmp_path) if fn.__code__.co_argcount else fn()

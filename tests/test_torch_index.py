@@ -236,12 +236,13 @@ def test_empty_index_and_unsupported_options():
     assert s.shape == (1, 0) and i.shape == (1, 0)
     s, i = port.search_with_feedback_batch(np.ones((2, DIM), np.float32), [[], []], k=5)
     assert s.shape == (2, 0)
-    with pytest.raises(NotImplementedError):
-        VectorIndex(DIM, device="cpu", quantize="bfloat16")
+    # bf16 rows and the approximate search are ported: an empty index answers empty
+    s, i = VectorIndex(DIM, device="cpu", quantize="bfloat16").search(np.ones(DIM, np.float32), k=5)
+    assert s.shape == (1, 0) and i.shape == (1, 0)
+    s, i = port.search(np.ones(DIM, np.float32), k=5, approx=True)
+    assert s.shape == (1, 0) and i.shape == (1, 0)
     with pytest.raises(NotImplementedError):
         VectorIndex(DIM, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        port.search(np.ones(DIM, np.float32), approx=True)
     with pytest.raises(ValueError):
         VectorIndex(DIM, device="cpu", quantize="int4")
 
@@ -334,3 +335,94 @@ def test_hbm_budget_switch_matches_reference(monkeypatch, budget, grows):
         else:
             with pytest.raises(RuntimeError, match="ISX_INDEX_HBM_BUDGET_GB"):
                 make(capacity=20_000)
+
+
+# ---- bf16 rows (--index-quantize bfloat16) and approx=True (--search-approx) ----
+
+
+def _bf16_check(got, want, tol=1e-6):
+    """bf16 rows: the query cast to bf16, exact products summed in f32 in
+    either framework's order -> scores within ``tol``; ids equal wherever no
+    neighbour lies within ``tol``."""
+    (gs, gi), (ws, wi) = got, want
+    assert gs.dtype == np.float32 and gs.shape == ws.shape
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=tol)
+    for b in range(gs.shape[0]):
+        d = np.abs(np.diff(gs[b]))
+        apart = np.ones(gs.shape[1], bool)
+        apart[1:] &= d > tol
+        apart[:-1] &= d > tol
+        np.testing.assert_array_equal(gi[b][apart], wi[b][apart])
+
+
+def test_bf16_rows_match_reference(tmp_path):
+    """Rows rounded to bf16 on the host as the reference rounds them; plain
+    and Rocchio searches; a store written by the reference reopens as bf16
+    with the same answers."""
+    rng = np.random.default_rng(40)
+    paths, emb = make_data(rng, 700)
+    port, ref = _pair("bfloat16", paths, emb)
+    assert port._emb_slabs[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(port.get_raw_embeddings(paths[:9]), ref.get_raw_embeddings(paths[:9]))
+    q = rng.normal(size=(5, DIM)).astype(np.float32)
+    _bf16_check(port.search(q, k=40), ref.search(q, k=40))
+    sels = [paths[:2], [], [paths[50]], ["/unknown.jpg"], paths[100:106]]
+    _bf16_check(port.search_with_feedback_batch(q, sels, k=40), ref.search_with_feedback_batch(q, sels, k=40))
+    store = JaxIndex(DIM, quantize="bfloat16", store=JaxStore(str(tmp_path), DIM))
+    store.add(paths[:300], emb[:300])
+    reopened = VectorIndex.from_store(EmbeddingStore(str(tmp_path), DIM), device="cpu", quantize="bfloat16")
+    _bf16_check(reopened.search(q, k=40), store.search(q, k=40))
+
+
+def test_bf16_sketch_and_twostage_take_bf16_rows():
+    """The sketch build and the certified two-stage search read bf16 slabs
+    (the rescore casts the query to bf16, as the full scan does) and answer
+    as the full scan."""
+    rng = np.random.default_rng(41)
+    mix = rng.normal(size=(8, DIM))
+    emb = (rng.normal(size=(9000, 8)) @ mix + 0.01 * rng.normal(size=(9000, DIM))).astype(np.float32)
+    paths = [f"/pics/c_{i:05d}.jpg" for i in range(len(emb))]
+    port = VectorIndex(DIM, device="cpu", quantize="bfloat16", min_capacity=4096, slab_rows=4096)
+    port.add(paths, emb)
+    port.build_sketch()
+    assert port.sketch_fresh
+    q = (rng.normal(size=(2, 8)) @ mix).astype(np.float32)
+    full = port.search(q, k=20)
+    got = port.search_twostage(q, k=20, candidates=512)
+    np.testing.assert_allclose(got[0], full[0], rtol=0, atol=1e-6)
+    assert port.twostage_certified == 1
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_approx_search_takes_lax_top_k_order(quantize):
+    """approx=True: off the TPU the reference's ``approx_max_k`` returns
+    ``lax.top_k``'s order. 262,144 rows (above exact_topk's two-level
+    threshold) of 64 distinct exact rows, so most scores tie: values and ids
+    equal the reference's, for the plain and the Rocchio search. The queries'
+    own rows are rare, so the 128-row blocks' maxima differ and the exact
+    path's two-level order (blocks by their maximum) is another order of the
+    same values."""
+    rng = np.random.default_rng(42)
+    _, base = exact_rows(rng, 64)
+    p = np.full(64, 1.0)
+    p[:2] = 0.02  # the queries' own rows: in about one block in forty
+    emb = base[rng.choice(64, size=262_144, p=p / p.sum())]
+    paths = [f"/pics/a_{i:06d}.jpg" for i in range(len(emb))]
+    port, ref = _pair(quantize, paths, emb)
+    q = base[:2]
+    got, want = port.search(q, k=1000, approx=True), ref.search(q, k=1000, approx=True)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    exact = port.search(q, k=1000)
+    np.testing.assert_array_equal(exact[0], got[0])
+    assert not np.array_equal(exact[1], got[1])
+    # a marked row: the query's own copies and the marked row's copies then
+    # tie in exact arithmetic (every row has norm 256), so only int8 scores,
+    # exact in both packages, order those groups alike
+    sels = [[paths[7]], []]
+    got = port.search_with_feedback_batch(q, sels, k=300, approx=True)
+    if quantize == "int8":
+        want = ref.search_with_feedback_batch(q, sels, k=300, approx=True)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], port.search_with_feedback_batch(q, sels, k=300)[0])

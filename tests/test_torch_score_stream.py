@@ -124,6 +124,19 @@ def test_query_quantization_general_queries_within_norm_roundoff():
     assert diff.max() <= 1 and diff.mean() < 1e-3
 
 
+@pytest.mark.parametrize("b", [1, 5, 32, 33, 70])
+def test_query_quantization_is_the_same_at_any_batch(b):
+    """A query's int8 values and scale do not depend on the other queries of
+    its batch (norms are reduced in blocks of ``NORM_ROWS`` rows): each row
+    of a batch of b equals the same query quantized alone, bitwise."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((b, 768)).astype(np.float32) * 3)
+    q, s = quantize_queries_int8(x)
+    for i in range(b):
+        qa, sa = quantize_queries_int8(x[i : i + 1])
+        assert torch.equal(q[i : i + 1], qa) and torch.equal(s[i : i + 1], sa)
+
+
 def test_no_route_for_other_devices():
     t8 = torch.empty((4, 8), dtype=torch.int8, device="meta")
     f = torch.empty((4,), device="meta")

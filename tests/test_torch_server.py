@@ -32,10 +32,18 @@ from image_search_tpu.server.engine import SearchEngine as RefEngine
 from image_search_tpu.utils.metrics import global_metrics as ref_metrics
 from image_search_tpu_torch.ingest.decode import DecodePool, decode_image, read_bmp24, write_bmp24
 from image_search_tpu_torch.server.app import make_server, parse_args
-from image_search_tpu_torch.server.engine import SearchEngine, ServerArgs
+from image_search_tpu_torch.server.engine import SearchEngine, ServerArgs, unsupported_flags
 from image_search_tpu_torch.utils.metrics import global_metrics
 
 SIZES = [(28, 28), (28, 45), (60, 28), (28, 33), (28, 28), (90, 28), (28, 70), (41, 28)]
+CLIENT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "image_search_tpu_torch", "client", "static")
+
+
+def _client_file(name):
+    """The port's copy of the reference's client file (tests/test_torch_import.py
+    holds it equal to the original)."""
+    with open(os.path.join(CLIENT, name), "rb") as f:
+        return f.read()
 
 
 def _corpus(media):
@@ -148,7 +156,8 @@ def test_health_media_and_errors(servers, scanned):
     assert _request("GET", base + "/media/missing.png")[0] == 404
     assert _request("POST", base + "/search", raw=b"{not json")[0] == 400
     assert _request("POST", base + "/search", {"q": 3})[0] == 400
-    assert _request("GET", base + "/nope")[0] == 404
+    # a GET no route claims is a client route: the web client's index.html
+    assert _request("GET", base + "/nope") == (200, _client_file("index.html"))
 
 
 def test_rescan_is_idempotent(servers, scanned):
@@ -173,9 +182,14 @@ def test_rescan_is_idempotent(servers, scanned):
     ],
 )
 def test_unported_flags_raise_at_startup(flags):
+    """Meshes, --from-hf and the profiler still raise at startup; the
+    one-card flags are ported and parse to no refusal."""
     args, device = parse_args(flags + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SearchEngine(args, device=device)
+    if flags[0] in ("--mesh-data", "--mesh-model", "--from-hf", "--profiler-port"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            SearchEngine(args, device=device)
+    else:
+        assert unsupported_flags(args) == []
 
 
 def test_parse_args_keeps_reference_flags():
@@ -529,3 +543,159 @@ def test_metrics_keys_and_gauges(twostage_servers):
         assert snap["counters"][name] >= 1
     assert {"scan", "sketch_build", "index_search", "image_embed"} <= set(snap["latencies"])
     assert set(snap["latencies"]) <= set(ref_metrics.snapshot()["latencies"])
+
+
+# ---- the web client: GET /, /static/<file> and the SPA fallback ----
+
+
+def _get(url):
+    req = urllib.request.Request(url, method="GET")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers.get("Content-Type"), err.read()
+
+
+def test_client_is_served_byte_identical(servers):
+    """GET / and every client route answer the reference's index.html;
+    /static/<file> the port's copies, byte-equal to the originals, with
+    their content types; a missing static file is 404, not the client."""
+    _, _, base = servers
+    index = _client_file("index.html")
+    for path in ("/", "/some/client/route", "/search", "/remove", "/static", "/media"):
+        assert _get(base + path) == (200, "text/html", index), path
+    for name, ctype in (("index.html", "text/html"), ("app.js", "text/javascript"),
+                        ("logic.js", "text/javascript"), ("style.css", "text/css")):
+        assert _get(base + "/static/" + name) == (200, ctype, _client_file(name))
+    assert _get(base + "/static/missing.js")[0] == 404
+    assert _request("GET", base + "/duplicates?job=unknown")[0] == 404
+    assert _request("POST", base + "/nope", {"q": "x"})[0] == 405
+
+
+@pytest.mark.parametrize("path", ["/static/../engine.py", "/static/%2e%2e/engine.py", "/static/..%2fapp.py",
+                                  "/static//etc/passwd", "/static/%2fetc%2fpasswd", "/static/link/app.py",
+                                  "/static/escape.txt"])
+def test_static_refuses_paths_outside_its_directory(tmp_path, path):
+    """A path that resolves outside --static-dir (``..``, an absolute path,
+    a symlink) answers 404, as /media/../ does."""
+    static = tmp_path / "static"
+    static.mkdir()
+    (static / "index.html").write_text("<html>client</html>")
+    (tmp_path / "secret.txt").write_text("secret")
+    os.symlink(os.path.dirname(os.path.abspath(__file__)), static / "link")
+    os.symlink(tmp_path / "secret.txt", static / "escape.txt")
+    engine = type("E", (), {"media_dir": str(tmp_path)})()
+    server = make_server(engine, static_dir=str(static))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_port}"
+        status, _, body = _get(base + path)
+        assert status == 404 and b"secret" not in body
+        assert _get(base + "/static/index.html")[2] == b"<html>client</html>"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+# ---- POST /remove over HTTP, against the reference engine ----
+
+
+@pytest.fixture(scope="module")
+def remove_servers(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_remove_srv")
+    media = str(root / "pics")
+    os.makedirs(media)
+    rng = np.random.default_rng(13)
+    for i in range(5):
+        Image.fromarray(rng.integers(0, 256, size=(28, 28 + 3 * i, 3), dtype=np.uint8)).save(f"{media}/r_{i}.png")
+    cfg = tiny_test_config()
+    ckpt = str(root / "tiny.safetensors")
+    save_checkpoint(ckpt, jax_init_params(jax.random.key(9), cfg), cfg)
+    common = dict(model_weights=ckpt, media_dir=media, k=50, index_quantize="int8")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_engine_mod, "make_mesh", lambda *a, **kw: None)
+        ref = RefEngine(RefArgs(index_dir=str(root / "ref_idx"), **common))
+    port = SearchEngine(ServerArgs(index_dir=str(root / "port_idx"), **common), device="cpu")
+    ref.scan()
+    server = make_server(port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    assert json.loads(_request("GET", base + "/scan")[1])["embedded"] == 5
+    yield ref, port, base
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+
+
+def test_remove_and_restore_over_http(remove_servers):
+    """POST /remove -> {"removed": n}, then every search omits the photo and
+    equals the reference engine's after the same removal; "restore": true ->
+    {"restored": n} and a rescan brings it back. Bodies the reference
+    refuses answer 400."""
+    ref, port, base = remove_servers
+    victim = ref.search("x")[0]["image_path"]
+    status, body = _request("POST", base + "/remove", {"images": [victim, victim, "media/ghost.png"]})
+    assert status == 200 and json.loads(body) == {"removed": ref.remove_images([victim, victim, "media/ghost.png"])} == {"removed": 1}
+    for q, marked in (("x", []), ("y", [ref.search("y")[0]["image_path"]])):
+        got = json.loads(_request("POST", base + "/search", {"q": q, "referenced_images": marked})[1])["images"]
+        want = ref.search(q, marked)
+        assert [d["id"] for d in got] == [d["id"] for d in want] and victim not in [d["image_path"] for d in got]
+        np.testing.assert_allclose([d["score"] for d in got], [d["score"] for d in want], atol=1e-5, rtol=0)
+    assert json.loads(_request("GET", base + "/scan")[1])["embedded"] == 0
+    for bad in (b"not json", b"[]", b'{"nope": 1}', b'{"images": 3}', b'{"images": null}'):
+        status, body = _request("POST", base + "/remove", raw=bad)
+        assert status == 400 and json.loads(body) == {"error": 'expected {"images": [...]}'}
+    status, body = _request("POST", base + "/remove", {"images": [victim], "restore": True})
+    assert status == 200 and json.loads(body) == {"restored": ref.restore_images([victim])} == {"restored": 1}
+    ref.scan()
+    assert json.loads(_request("GET", base + "/scan")[1])["embedded"] == 1
+    got = json.loads(_request("POST", base + "/search", {"q": "x", "referenced_images": []})[1])["images"]
+    assert [d["id"] for d in got] == [d["id"] for d in ref.search("x")] and victim in [d["image_path"] for d in got]
+
+
+# ---- --search-approx and --index-quantize bfloat16, served ----
+
+
+@pytest.fixture(scope="module", params=[dict(search_approx=True, index_quantize="int8"),
+                                        dict(index_quantize="bfloat16")], ids=["approx", "bf16"])
+def flag_servers(request, tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_flag_srv")
+    media = str(root / "pics")
+    _corpus(media)
+    cfg = tiny_test_config()
+    ckpt = str(root / "tiny.safetensors")
+    save_checkpoint(ckpt, jax_init_params(jax.random.key(10), cfg), cfg)
+    common = dict(model_weights=ckpt, media_dir=media, chunk_size=3, k=50, **request.param)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_engine_mod, "make_mesh", lambda *a, **kw: None)
+        ref = RefEngine(RefArgs(index_dir=str(root / "ref_idx"), **common))
+    port = SearchEngine(ServerArgs(index_dir=str(root / "port_idx"), **common), device="cpu")
+    server = make_server(port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    ref.scan()
+    assert json.loads(_request("GET", base + "/scan")[1])["embedded"] == len(SIZES)
+    yield ref, port, base
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+
+
+def test_flag_servers_match_reference(flag_servers):
+    """/search plain and with feedback and /search_image under each flag:
+    the reference's photos in its order, scores within 1e-5."""
+    ref, port, base = flag_servers
+    marked = [d["image_path"] for d in ref.search("marks")[:2]]
+    for q, refs in (("a dark square", []), ("a dark square", marked)):
+        status, body = _request("POST", base + "/search", {"q": q, "referenced_images": refs})
+        assert status == 200
+        _same_images(json.loads(body)["images"], ref.search(q, refs))
+    data = _photo_bytes(port)
+    status, body = _request("POST", base + "/search_image", raw=data)
+    assert status == 200
+    _same_images(json.loads(body)["images"], ref.search_by_image(data))

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from image_search_tpu.ops.topk import exact_topk as ref_topk
-from image_search_tpu_torch.ops.topk import exact_topk, stable_topk
+from image_search_tpu_torch.ops.topk import exact_topk, lax_topk, stable_topk
 
 NEG_INF = float(np.finfo(np.float32).min)
 TWO_LEVEL_N = 2 * 128 * 2048  # above the reference's threshold: N/128 rows >= hold
@@ -88,3 +88,18 @@ def test_stable_topk_keeps_index_order_within_ties():
     full_v, full_i = torch.sort(s, dim=-1, descending=True, stable=True)
     assert torch.equal(vals, full_v[:, :60]) and torch.equal(idx, full_i[:, :60])
     assert stable_topk(s, 0)[1].shape == (4, 0)
+
+
+@pytest.mark.parametrize("n,k", [(TWO_LEVEL_N, 1000), (TWO_LEVEL_N, 1500), (TWO_LEVEL_N + 1, 100), (640, 50)])
+def test_lax_topk_is_lax_top_k_at_any_n(n, k):
+    """``--search-approx``'s order: the reference's ``approx_max_k`` off the
+    TPU, which is ``lax.top_k``'s, values and indices, above the two-level
+    threshold too (where exact_topk keeps its own order)."""
+    import jax
+
+    rng = np.random.default_rng(n + k)
+    s = rng.integers(-200, 200, size=(2, n)).astype(np.float32) / 64
+    want_v, want_i = (np.asarray(a) for a in jax.lax.approx_max_k(s, k, recall_target=0.95))
+    got_v, got_i = lax_topk(torch.from_numpy(s), k)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)

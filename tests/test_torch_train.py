@@ -8,6 +8,7 @@ rtol 1e-4 and atol 1e-5, one AdamW update on given gradients at 1e-6.
 """
 
 import dataclasses
+import glob
 import logging
 import os
 
@@ -257,7 +258,8 @@ def test_evaluate_pairs_matches_reference(setup, tmp_path):
 
 def test_finetune_cli_with_eval_dir(setup, tmp_path, caplog):
     """finetune.main on the CPU: retrieval measured before and after, the
-    output checkpoint written in the reference's format with new weights."""
+    output checkpoint written in the reference's format with new weights;
+    with --thumb-cache the photos it decoded leave tiles behind."""
     from image_search_tpu.models.convert import load_checkpoint as jload, save_checkpoint as jsave
 
     cfg, jparams, _ = setup
@@ -269,8 +271,10 @@ def test_finetune_cli_with_eval_dir(setup, tmp_path, caplog):
             "--data-dir", _pairs(tmp_path / "data", 8), "--weights", ckpt, "--out", out,
             "--batch-size", "8", "--steps", "2", "--lr", "1e-3",
             "--eval-dir", _pairs(tmp_path / "eval", 4, seed=1), "--device", "cpu",
+            "--thumb-cache", str(tmp_path / "thumbs"),
         ])
     assert "retrieval BEFORE" in caplog.text and "retrieval AFTER" in caplog.text
+    assert len(glob.glob(str(tmp_path / "thumbs" / "*" / "*.jpg"))) >= 8
     trained, cfg2 = jload(out)
     assert cfg2 == cfg
     assert not np.array_equal(np.asarray(trained["vision"]["blocks"]["qkv_w"]), jparams["vision"]["blocks"]["qkv_w"])
