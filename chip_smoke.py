@@ -80,17 +80,29 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    timed in turns with the int8 full scan; the bf16 GEMM with an f32 output
    against f32-upcast chunks on one slab; ``approx=True`` against the exact
    top-k); (C) ``--search-approx`` answers equal the exact search;
-9. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
+9. the OpenCLIP ladder, ``openclip-vit-H-14`` (vision head dim 80) and
+   ``openclip-vit-bigG-14`` (104), seeded random weights made on the card:
+   B1, B1p, B6 (split and padded) and B7 at each head dim against their
+   plain versions at B=160 S=257 H=16, timed beside SDPA, at the ragged
+   edges S = 1, 33, 300, and with every head's v a distinct constant; B5
+   and B8 raising for those head dims; B1 at bigG's text shape; B9 at the
+   presets' widths (K 1280 and 1664); both towers at full width (img/s,
+   text ms, launches per head dim on every route, depth 2 against f32 on
+   the CPU); each preset's server (/scan, /search plain and with feedback,
+   /search_image against the plain scoring, B1's launches per head dim,
+   peak memory); H/14 served under ``ISX_ATTN_PIPE=0`` and
+   ``ISX_VIT_SPAD=264``; B2 bitwise at 1M rows of D 1024 and 1280;
+10. one ViT-L/14 train step (seeded random f32 master weights, bf16 compute,
    B=8) on the card against the same step in f32 on the CPU: loss and
    gradient cosines, and B1/B5 launches per step; the same card step under
    ``ISX_ATTN_PIPE=0`` and ``ISX_ATTN_SPLIT=1`` (loss within 1e-2 of the
    default route's, B5 on every backward);
-10. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
+11. the fine-tune CLI (``train.finetune.main``) on 64 synthetic BMP photos
    with captions, batch 64, 6 steps, with ``--eval-dir`` and
    ``--checkpoint-dir``, once without and once with ``--remat``: the loss
    falls, the output checkpoint reads back with new weights, B1/B5 launch
    counts; ms/step, pairs/s, peak memory;
-11. a ``torch.profiler`` split of one batch-64 train step's device time.
+12. a ``torch.profiler`` split of one batch-64 train step's device time.
 
 Each phase sets the attention route switches it needs and restores them
 after. The second-to-last line is a JSON object describing every kernel of
@@ -321,19 +333,20 @@ def check_attention_bwd(torch, gen, dev, B, S, H, causal):
     )
 
 
-def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_real=None):
+def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_real=None, Hd=64, timed=True):
     """One attention forward kernel against its plain version on the tower's
-    layout (q scaled and contiguous, k and v strided column blocks of one
-    fused qkv projection), timed beside scaled_dot_product_attention on the
-    same inputs. ``core``: "grouped" (B1), "packed" (B1p), "split" (B6 on
-    unpadded operands) or "padded" (B6 on operands padded to S rows, keys
-    >= s_real masked; SDPA gets the same boolean key mask)."""
+    layout (q scaled by Hd^-0.5 and contiguous, k and v strided column blocks
+    of one fused qkv projection), timed beside scaled_dot_product_attention
+    on the same inputs unless ``timed`` is false. ``core``: "grouped" (B1),
+    "packed" (B1p), "split" (B6 on unpadded operands) or "padded" (B6 on
+    operands padded to S rows, keys >= s_real masked; SDPA gets the same
+    boolean key mask)."""
     from image_search_tpu_torch.ops import attention as A
 
     F = torch.nn.functional
-    D, Hd = H * 64, 64
+    D = H * Hd
     qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
-    q = qkv[..., :D] * 0.125
+    q = qkv[..., :D] * Hd**-0.5
     k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
     split = lambda t: t.reshape(B, -1, H, Hd)
     if core == "grouped":
@@ -355,9 +368,11 @@ def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_rea
     want, want32 = plain(q, k, v), plain(q.float(), k.float(), v.float())
     err = (got.float() - want.float()).abs().max().item()
     cos = F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min().item()
-    shape = f"B={B} S={S} H={H} Hd=64 causal={causal}" + (f" s_real={s_real}" if s_real else "")
+    shape = f"B={B} S={S} H={H} Hd={Hd} causal={causal}" + (f" s_real={s_real}" if s_real else "")
     check(err <= ATTN_MAX_ABS, f"attention {core} {shape}: max abs err {err} > {ATTN_MAX_ABS}")
     check(cos >= ATTN_MIN_COS, f"attention {core} {shape}: min cosine {cos} < {ATTN_MIN_COS}")
+    if not timed:
+        return dict(max_abs_err=err, min_cos=cos, shape=shape)
     k_ms, p_ms = ab_ms(torch, lambda: plain(q, k, v), kernel, iters=10, timer=graph_ms)
     heads = lambda t: split(t).transpose(1, 2)  # [B, H, S, Hd] views
     keys = s_real or S
@@ -382,29 +397,30 @@ def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_rea
     )
 
 
-def _attn_bound(B, S, H, causal, extra_ops=0.0, extra_bytes=0.0):
-    """Bound of attention over [B, S, H*64] q, k and v read once and the
+def _attn_bound(B, S, H, causal, extra_ops=0.0, extra_bytes=0.0, Hd=64):
+    """Bound of attention over [B, S, H*Hd] q, k and v read once and the
     output written once, plus extra operations and bytes."""
-    D = H * 64
+    D = H * Hd
     pairs = S * (S + 1) // 2 if causal else S * S  # the (query, key) pairs the data needs
-    return bound(4 * B * S * D * 2 + extra_bytes, 4 * B * H * pairs * 64 + extra_ops, BF16_FLOP_PER_S)
+    return bound(4 * B * S * D * 2 + extra_bytes, 4 * B * H * pairs * Hd + extra_ops, BF16_FLOP_PER_S)
 
 
-def check_qkv_packed(torch, gen, dev, B, S, H, causal):
-    """B7 against its plain version on one packed qkv at sm_scale 0.125 (Hd =
-    64), and bitwise against B1p on (q * 0.125, k, v): a power of two scales
-    q exactly in bf16. Timed beside SDPA on the three views."""
+def check_qkv_packed(torch, gen, dev, B, S, H, causal, Hd=64, timed=True):
+    """B7 against its plain version on one packed qkv at sm_scale 0.125, and
+    bitwise against B1p on (q * 0.125, k, v): a power of two scales q exactly
+    in bf16. Timed beside SDPA on the three views unless ``timed`` is
+    false."""
     from image_search_tpu_torch.ops import attention as A
 
     F = torch.nn.functional
-    D, Hd, scale = H * 64, 64, 0.125
+    D, scale = H * Hd, 0.125
     qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
     q, k, v = qkv[..., :D], qkv[..., D : 2 * D], qkv[..., 2 * D :]
     kernel = lambda: A.fused_attention_qkv_packed(qkv, H, causal, scale)
     plain = lambda t: A.attention_qkv_packed_reference(t, H, causal, scale)
     got = kernel()
     torch.cuda.synchronize()
-    shape = f"B={B} S={S} H={H} Hd=64 causal={causal} sm_scale={scale}"
+    shape = f"B={B} S={S} H={H} Hd={Hd} causal={causal} sm_scale={scale}"
     check(torch.equal(got, A.fused_attention_packed(q * scale, k, v, H, causal)),
           f"B7 {shape}: not bitwise equal to B1p on (q * {scale}, k, v)")
     want, want32 = plain(qkv), plain(qkv.float())
@@ -412,16 +428,18 @@ def check_qkv_packed(torch, gen, dev, B, S, H, causal):
     cos = F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min().item()
     check(err <= ATTN_MAX_ABS, f"B7 {shape}: max abs err {err} > {ATTN_MAX_ABS}")
     check(cos >= ATTN_MIN_COS, f"B7 {shape}: min cosine {cos} < {ATTN_MIN_COS}")
+    if not timed:
+        return dict(max_abs_err=err, min_cos=cos, shape=shape)
     k_ms, p_ms = ab_ms(torch, lambda: plain(qkv), kernel, iters=10, timer=graph_ms)
     heads = lambda t: t.reshape(B, S, H, Hd).transpose(1, 2)
     lib_ms = statistics.median(graph_ms(
         torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal, scale=scale),
         iters=10,
     ))
-    b_ms, b_by = _attn_bound(B, S, H, causal)
+    b_ms, b_by = _attn_bound(B, S, H, causal, Hd=Hd)
     pairs = S * (S + 1) // 2 if causal else S * S
     print(f"B7 attention qkv-packed {shape}: bitwise_equal_B1p=True max_abs_err={err} min_cos_vs_f32={cos} "
-          f"kernel_ms={k_ms} {achieved(4 * B * H * pairs * 64, k_ms, b_ms)} plain_ms={p_ms} sdpa_ms={lib_ms} "
+          f"kernel_ms={k_ms} {achieved(4 * B * H * pairs * Hd, k_ms, b_ms)} plain_ms={p_ms} sdpa_ms={lib_ms} "
           f"bound_ms={b_ms} ({b_by})"
           + ("  (kernel SLOWER than plain)" if k_ms > p_ms else ""))
     return dict(max_abs_err=err, min_cos=cos, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
@@ -914,7 +932,8 @@ def _serving(dev, model: str, flags=()):
 def _scan_and_search(torch, engine, base: str, k: int):
     """/scan of the 64 photos, /search plain and with feedback, /health, each
     answer checked (the /search answers against the plain scoring of the same
-    index). -> (kernel launches of the run, request times)."""
+    index). -> (kernel launches of the run, the attention forward's launches
+    of the run per head dim, request times)."""
     _reset_counts()
     st, scan, scan_ms = _http("GET", base + "/scan")
     st1, plain, ms1 = _http("POST", base + "/search", {"q": "a red square", "referenced_images": []})
@@ -922,7 +941,7 @@ def _scan_and_search(torch, engine, base: str, k: int):
     st2, fb, ms2 = _http("POST", base + "/search", {"q": "a red square", "referenced_images": marked})
     st3, health, ms3 = _http("GET", base + "/health")
     torch.cuda.synchronize()
-    launches = _read_counts()
+    launches, by_hd = _read_counts(), _read_counts_by_hd()
 
     check(st == 200 and scan["embedded"] == 64 and scan["decode_failures"] == 0, f"/scan: {scan}")
     for name, s, body in (("plain", st1, plain), ("feedback", st2, fb)):
@@ -949,7 +968,7 @@ def _scan_and_search(torch, engine, base: str, k: int):
         f"{scan['embedded'] / scan['seconds']} img/s (request {scan_ms} ms); "
         f"/search plain {ms1} ms, feedback {ms2} ms, /health {ms3} ms"
     )
-    return launches, {"scan_s": scan["seconds"], "scan_ms": scan_ms, "search_ms": (ms1, ms2)}
+    return launches, by_hd, {"scan_s": scan["seconds"], "scan_ms": scan_ms, "search_ms": (ms1, ms2)}
 
 
 def _attention_launches(launches):
@@ -964,7 +983,7 @@ def phase_server(torch, dev, model: str = "clip-vit-large-patch14"):
     cfg = get_config(model)
     want = {"fused_attention": cfg.vision.num_layers - 1 + cfg.text.num_layers - 1}
     with _serving(dev, model) as (engine, base, media, k):
-        launches, _ = _scan_and_search(torch, engine, base, k)
+        launches, _, _ = _scan_and_search(torch, engine, base, k)
         print(f"server: kernel launches in the /scan + /search run: {launches}")
         check(_attention_launches(launches) == want, f"/scan + /search launched {launches}, want {want}")
         dup = phase_duplicates(torch, dev, engine, base, media)
@@ -986,7 +1005,7 @@ def phase_server_routes(torch, dev, model: str = "clip-vit-large-patch14"):
         want = {entry: L_v}
         want[text_entry] = want.get(text_entry, 0) + L_t
         with switches(env), _serving(dev, model) as (engine, base, _, k):
-            launches, times = _scan_and_search(torch, engine, base, k)
+            launches, _, times = _scan_and_search(torch, engine, base, k)
         print(f"server, {route} route {env}: kernel launches in the /scan + /search run: {launches}")
         check(_attention_launches(launches) == want, f"{route} route: /scan + /search launched {launches}, want {want}")
         res[route] = dict(launches=launches, **times)
@@ -1730,6 +1749,323 @@ def phase_serving(torch, dev, model: str = "clip-vit-large-patch14"):
     return res
 
 
+LADDER = {"openclip-vit-H-14": 80, "openclip-vit-bigG-14": 104}  # preset -> its vision tower's head dim
+LADDER_ROWS = 1_000_000  # B2 at the ladder's row widths
+# B9's (K, N) in the presets' fully fused vision blocks: H/14's qkv and fc1, bigG's
+LADDER_LN_MATMUL = ((1280, 3840), (1280, 5120), (1664, 4992), (1664, 8192))
+# the kernels line's entries at the ladder's head dims: (entry point, the
+# Pallas body it replaces, the ladder phase's result for it)
+LADDER_ENTRIES = (
+    ("fused_attention", "attention.py:665", "grouped"),
+    ("fused_attention_packed", "attention.py:29", "packed"),
+    ("fused_attention_split_padded", "attention.py:492", "padded"),
+    ("fused_attention_qkv_packed", "attention.py:276", "qkv_packed"),
+)
+
+
+def check_head_isolation(torch, gen, dev, Hd, B=160, S=257, H=16):
+    """B1, B1p, B6 (split and padded) and B7 at the vision shape with every
+    head's v a distinct constant (head h: h + 1): each output column must
+    hold its own head's constant, whatever the logits, so a read or a store
+    past a head's edge (at Hd 104: columns 104-111 are the next head's) shows
+    as another head's value; the output starts as NaN, so a column never
+    written shows too."""
+    from image_search_tpu_torch.ops import attention as A
+
+    F = torch.nn.functional
+    D, Sp = H * Hd, (S // 128) * 128 + 8
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
+    const = torch.arange(1, H + 1, device=dev, dtype=torch.float32).repeat_interleave(Hd)
+    qkv[..., 2 * D :] = const.to(torch.bfloat16)
+    q, k, v = qkv[..., :D] * Hd**-0.5, qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    pad = lambda t: F.pad(t, (0, 0, 0, Sp - S))
+    calls = {
+        "grouped": lambda: A.fused_attention(q, k, v, H),
+        "packed": lambda: A.fused_attention_packed(q, k, v, H),
+        "split": lambda: A.fused_attention_split(q, k, v, H),
+        "padded": lambda: A.fused_attention_split_padded(pad(q), pad(k), pad(v), H, S)[:, :S],
+        "qkv_packed": lambda: A.fused_attention_qkv_packed(qkv, H, False, Hd**-0.5),
+    }
+    worst = {}
+    for core, call in calls.items():
+        torch.empty(B * Sp * D * 4, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
+        got = call()
+        torch.cuda.synchronize()
+        rel = (got.float() / const - 1).abs()
+        worst[core] = rel.max().item()
+        check(bool(torch.isfinite(rel).all()) and worst[core] <= 2e-2,
+              f"attention {core} Hd={Hd}: a column left its head (max |out / own constant - 1| = {worst[core]})")
+    print(f"ladder: per-head isolation B={B} S={S} H={H} Hd={Hd}: max |out / own head's constant - 1| {worst} "
+          f"(<= 2e-2; neighbouring constants differ by >= 1/{H})")
+    return worst
+
+
+def ladder_kernels(torch, gen, dev, Hd):
+    """B1, B1p, B6 (split and padded) and B7 at the vision shape B=160 S=257
+    H=16 and head dim Hd against their plain versions, timed beside SDPA; B1,
+    B1p and B7 at the ragged edges S = 1, 33 and 300 (causal and not); the
+    per-head isolation case; B5 and B8 raise for the head dim."""
+    from image_search_tpu_torch.ops import attention as A
+
+    res = {}
+    for core in ("grouped", "packed"):
+        res[core] = check_attention_fwd(torch, gen, dev, core, 160, 257, 16, Hd=Hd)
+    res["split"] = check_attention_fwd(torch, gen, dev, "split", 160, 257, 16, Hd=Hd)
+    res["padded"] = check_attention_fwd(torch, gen, dev, "padded", 160, 264, 16, s_real=257, Hd=Hd)
+    res["qkv_packed"] = check_qkv_packed(torch, gen, dev, 160, 257, 16, False, Hd=Hd)
+    torch.cuda.empty_cache()
+    ragged = []
+    for S in (1, 33, 300):
+        for causal in (False, True):
+            for core in ("grouped", "packed"):
+                ragged.append(check_attention_fwd(torch, gen, dev, core, 4, S, 16, causal, Hd=Hd, timed=False))
+            ragged.append(check_qkv_packed(torch, gen, dev, 4, S, 16, causal, Hd=Hd, timed=False))
+    print(f"ladder: B1, B1p, B7 at Hd={Hd}, B=4 H=16, S in (1, 33, 300), causal and not: "
+          f"max_abs_err={max(r['max_abs_err'] for r in ragged)} min_cos_vs_f32={min(r['min_cos'] for r in ragged)}")
+    res["isolation"] = check_head_isolation(torch, gen, dev, Hd)
+    x = torch.zeros(1, 8, 2 * Hd, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(6 * Hd, 2 * Hd, device=dev, dtype=torch.bfloat16)
+    for what, call in (("B5", lambda: A.fused_attention_bwd(x, x, x, x, 2)),
+                       ("B8", lambda: A.fused_qkv_attention(x, w, w[:, 0].contiguous(), 2))):
+        try:
+            call()
+            raise SmokeFailure(f"{what} ran at head dim {Hd}: it is built at 64 only")
+        except NotImplementedError as err:
+            check(f"head dim {Hd} not built" in str(err), f"{what} at head dim {Hd}: {err}")
+    for core in ("grouped", "packed", "padded", "qkv_packed"):
+        res[core]["ragged_max_abs_err"] = max(r["max_abs_err"] for r in ragged)
+    return res
+
+
+def tower_bound_ms(tc, batch: int, tokens: int, causal: bool, extra_ops: float = 0.0) -> float:
+    """The least ms the card could take for one tower forward of ``batch``
+    sequences of ``tokens``: its matmul and attention operations (every
+    layer counted in full) at the bf16 peak against its bf16 weights read
+    once at the HBM rate, whichever is longer."""
+    D, M, L = tc.hidden_size, tc.mlp_size, tc.num_layers
+    pairs = tokens * (tokens + 1) / 2 if causal else tokens * tokens
+    ops = batch * (L * (2 * tokens * (4 * D * D + 2 * D * M) + 4 * pairs * D) + extra_ops)
+    return bound(L * (4 * D * D + 2 * D * M) * 2, ops, BF16_FLOP_PER_S)[0]
+
+
+def _ladder_depth2(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=2),
+                               vision=dataclasses.replace(cfg.vision, num_layers=2))
+
+
+def ladder_towers(torch, gen, dev, name: str, smi):
+    """One ladder preset at full width and depth, seeded random bf16 weights
+    made on the card: preprocess + vision tower at B=160 and the text tower
+    at B=8 (B1 in every layer but the last, counted), img/s and text ms;
+    the vision tower once under each other route and under the fully fused
+    blocks (launches counted exactly, output against the default route's);
+    then at depth 2 the card's embeddings of 4 images and 4 texts against the
+    same weights in f32 on the CPU through the plain versions."""
+    import numpy as np
+
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.block_fused import COMPOSITIONS, blocks_as
+    from image_search_tpu_torch.models.clip import encode_image, encode_text
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
+    from image_search_tpu_torch.tokenizer import HashTokenizer
+
+    F = torch.nn.functional
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    state = init_params(cfg, gen, dev, torch.bfloat16)  # on the card: bigG is ~2.5 B parameters
+    model = build_model(cfg, state, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in state.values())
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(160)]
+    u8, A_h, A_w = (torch.from_numpy(a) for a in pack_batch(images, size=cfg.vision.image_size))
+    u8_d, A_h_d, A_w_d = (t.to(dev) for t in (u8, A_h, A_w))
+    tok = HashTokenizer(cfg.text.vocab_size, cfg.text.context_length, eos_id=cfg.text.eos_token_id)
+    ids = torch.from_numpy(tok([f"a photo of thing number {i}" for i in range(8)]).astype(np.int64))
+    L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
+    Hd_v, Hd_t = cfg.vision.hidden_size // cfg.vision.num_heads, cfg.text.hidden_size // cfg.text.num_heads
+
+    def vision(m=model, n=160):
+        return encode_image(m, fused_preprocess(u8_d[:n], A_h_d[:n], A_w_d[:n], out_dtype=torch.bfloat16))
+
+    def launched(fn):
+        """fn()'s result, its kernel launches by entry point, and the
+        attention forward's launches by entry point and head dim."""
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in _read_counts().items() if v and k != "fused_attention_bwd"}, _read_counts_by_hd()
+
+    res = {"params": n_params, "init_s": init_s}
+    with torch.inference_mode():
+        img, n_img, hd_img = launched(vision)
+        txt, n_txt, hd_txt = launched(lambda: encode_text(model, ids.to(dev)))
+        check(n_img == {"fused_attention": L_v}, f"{name} vision forward launched {n_img}, want B1 {L_v} times")
+        check(n_txt == {"fused_attention": L_t}, f"{name} text forward launched {n_txt}, want B1 {L_t} times")
+        check(hd_img == {"fused_attention": {Hd_v: L_v}} and hd_txt == {"fused_attention": {Hd_t: L_t}},
+              f"{name}: launches per head dim vision {hd_img}, text {hd_txt}, want B1 at {Hd_v} / {Hd_t}")
+        check(img.shape == (160, cfg.projection_dim) and bool(torch.isfinite(img).all()), f"{name}: bad image embeddings")
+        check(txt.shape == (8, cfg.projection_dim) and bool(torch.isfinite(txt).all()), f"{name}: bad text embeddings")
+        ms = statistics.median(cuda_ms(torch, vision, iters=5))
+        txt_ms = statistics.median(cuda_ms(torch, lambda: encode_text(model, ids.to(dev)), iters=5))
+        vc = cfg.vision
+        patch_ops = 2 * (vc.seq_len - 1) * 3 * vc.patch_size**2 * vc.hidden_size
+        v_bound = tower_bound_ms(vc, 160, vc.seq_len, False, patch_ops)
+        t_bound = tower_bound_ms(cfg.text, 8, cfg.text.context_length, True)
+        res |= {"vision_ms": ms, "img_per_s": 160 / (ms * 1e-3), "text_ms": txt_ms, "vision_bound_ms": v_bound,
+                "text_bound_ms": t_bound, "vision_launches": n_img, "text_launches": n_txt}
+        print(f"ladder towers {name} ({n_params} parameters made on the card in {init_s:.2f} s): vision launches "
+              f"{n_img}, text launches {n_txt}; bf16 preprocess+vision B=160 {ms} ms/batch = {160 / (ms * 1e-3)} "
+              f"img/s (bound {v_bound} ms = {160 / (v_bound * 1e-3)} img/s, {v_bound / ms:.1%} of it); text tower "
+              f"B=8 {txt_ms} ms (bound {t_bound} ms)  [{smi}]")
+        routes = {}
+        variants = {r: (lambda env=env: switches(env), {entry: L_v}) for r, (env, entry) in ROUTE_SWITCHES.items()}
+        variants["fully fused"] = (lambda: blocks_as(COMPOSITIONS["fully fused"]),
+                                   {k: v * L_v for k, v in FUSED_LAUNCHES["fully fused"].items()})
+        for route, (ctx, want) in variants.items():
+            with ctx():
+                got, n, by_hd = launched(vision)
+            cos = F.cosine_similarity(got.float(), img.float(), dim=-1).min().item()
+            check(n == want, f"{name} vision on the {route} route launched {n}, want {want}")
+            want_hd = {k: {Hd_v: v} for k, v in want.items() if k.startswith("fused_attention")}
+            check(by_hd == want_hd, f"{name} vision on the {route} route: launches per head dim {by_hd}, want {want_hd}")
+            check(cos >= TOWER_MIN_COS, f"{name} {route} route: cosine {cos} to the default route < {TOWER_MIN_COS}")
+            routes[route] = {"launches": n, "launches_by_hd": by_hd, "cos_to_default": cos}
+        res["routes"] = routes
+        print(f"ladder towers {name}: vision under each other route, launches and min cosine to the default "
+              f"route's embeddings: {routes}")
+        del model, state, img, txt
+        torch.cuda.empty_cache()
+
+        cfg2 = _ladder_depth2(cfg)
+        state2 = init_params(cfg2, gen, dev, torch.bfloat16)
+        m2 = build_model(cfg2, state2, dev, torch.bfloat16)
+        img, n_img, _ = launched(lambda: vision(m2, 4))
+        txt, n_txt, _ = launched(lambda: encode_text(m2, ids[:4].to(dev)))
+        check(n_img == n_txt == {"fused_attention": 1}, f"{name} depth 2: launched {n_img} and {n_txt}")
+        cpu = build_model(cfg2, {k: t.float().cpu() for k, t in state2.items()}, "cpu", torch.float32)
+        img32 = encode_image(cpu, fused_preprocess(u8[:4], A_h[:4], A_w[:4]))
+        txt32 = encode_text(cpu, ids[:4])
+        cos_i = F.cosine_similarity(img.float().cpu(), img32, dim=-1).min().item()
+        cos_t = F.cosine_similarity(txt.float().cpu(), txt32, dim=-1).min().item()
+        print(f"ladder towers {name} at full width and depth 2: bf16 card vs f32 CPU min cosine image={cos_i} "
+              f"text={cos_t} (bound {TOWER_MIN_COS})")
+        check(cos_i >= TOWER_MIN_COS and cos_t >= TOWER_MIN_COS, f"{name} depth 2: cosine {cos_i} / {cos_t}")
+        res |= {"cos_image": cos_i, "cos_text": cos_t}
+        del m2, state2, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def ladder_server(torch, dev, name: str):
+    """The HTTP server of one ladder preset on the 64 photos, seeded random
+    weights at full width, an int8 index: /scan, /search plain and with
+    feedback (against the plain scoring of the same index), one
+    /search_image (against the plain scoring of the photo's B=1
+    embedding); launches counted, the peak memory read."""
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.ingest.decode import decode_image_bytes
+
+    cfg = get_config(name)
+    L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
+    Hd_v, Hd_t = cfg.vision.hidden_size // cfg.vision.num_heads, cfg.text.hidden_size // cfg.text.num_heads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()  # what earlier phases still hold: not the server's
+    with _serving(dev, name) as (engine, base, media, k):
+        launches, by_hd, times = _scan_and_search(torch, engine, base, k)
+        want = {"fused_attention": L_v + L_t}  # /scan's one vision batch, one text batch (feedback hits the cache)
+        check(_attention_launches(launches) == want, f"{name}: /scan + /search launched {launches}, want {want}")
+        want_hd = {"fused_attention": {Hd_v: L_v, Hd_t: L_t}}
+        check(by_hd == want_hd, f"{name}: /scan + /search launches per head dim {by_hd}, want {want_hd}")
+        photo = sorted(engine.index.paths)[7]
+        with open(photo, "rb") as f:
+            data = f.read()
+        _reset_counts()
+        st, img, img_ms = _http("POST", base + "/search_image", raw=data)
+        torch.cuda.synchronize()
+        img_launches, img_by_hd = _read_counts(), _read_counts_by_hd()
+        check(st == 200, f"{name} /search_image: status {st}")
+        _check_images(f"{name} /search_image", img, k)
+        check(_attention_launches(img_launches) == {"fused_attention": L_v},
+              f"{name} /search_image launched {img_launches}, want B1 {L_v} times")
+        check(img_launches["stream_scores_int8"] > 0, f"{name} /search_image: B2 not on the path")
+        check(img_by_hd == {"fused_attention": {Hd_v: L_v}}, f"{name} /search_image: launches per head dim {img_by_hd}")
+        emb = engine.embedder.embed_images_async([decode_image_bytes(data)], min_bucket=1)[:1]
+        want_s, want_p = _plain_scores_top(torch, engine.index, emb.float().reshape(1, -1), k)
+        _same_answer(f"{name} /search_image", [d["score"] for d in img["images"]],
+                     [engine.to_abs_path(d["image_path"]) for d in img["images"]], want_s, want_p)
+        check(img["images"][0]["image_path"] == engine.to_media_path(photo), f"{name} /search_image: not its own top hit")
+        peak = (torch.cuda.max_memory_allocated() - live) / 2**30
+    # B1 at the vision head dim in the two counted runs, as its wrapper counted them
+    vision_b1 = by_hd["fused_attention"][Hd_v] + img_by_hd["fused_attention"][Hd_v]
+    print(f"ladder server {name}: launches /scan + /search {launches} (per head dim {by_hd}), /search_image "
+          f"{img_launches} (per head dim {img_by_hd}); /search_image {img_ms} ms; peak memory {peak:.2f} GiB above "
+          f"the {live / 2**30:.2f} GiB held before")
+    return dict(launches=launches, image_launches=img_launches, vision_b1=vision_b1, search_image_ms=img_ms,
+                peak_gib=peak, **times)
+
+
+def ladder_scores(torch, gen, dev):
+    """B2 at the ladder's row widths (H/14's 1024, bigG's 1280), 1M rows and
+    B = 1 and 8: bitwise its plain version in one launch, timed in turns
+    against the bound. At 1280 the plain version sums in f64 (an f32 sum of
+    int8 products is exact only below 2^24)."""
+    from image_search_tpu_torch.ops.score_stream import quantize_rows_int8, scores_int8_reference, stream_scores_int8
+
+    F = torch.nn.functional
+    res = {}
+    N = LADDER_ROWS
+    for D in (1024, 1280):
+        rows, scales = quantize_rows_int8(F.normalize(torch.randn(N, D, generator=gen, device=dev), dim=-1))
+        limit = N - 12_345
+        for B in (1, 8):
+            qi, qs = quantize_rows_int8(F.normalize(torch.randn(B, D, generator=gen, device=dev), dim=-1))
+            n0 = stream_scores_int8.launches
+            got = stream_scores_int8(rows, qi, qs, scales, limit)
+            n_launch = stream_scores_int8.launches - n0
+            want = scores_int8_reference(rows, qi, qs, scales, limit)
+            check(n_launch == 1 and torch.equal(got, want), f"int8 scores D={D} B={B}: {n_launch} launches, "
+                  f"bitwise equal {torch.equal(got, want)}")
+            k_ms, p_ms = ab_ms(torch, lambda: scores_int8_reference(rows, qi, qs, scales, limit),
+                               lambda: stream_scores_int8(rows, qi, qs, scales, limit), iters=10)
+            b_ms, b_by = bound(N * D + B * D + 4 * B + 4 * N + 4 * B * N, 2 * B * N * D, INT8_OP_PER_S)
+            res[(D, B)] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                               bound_by=b_by, shape=f"N={N} D={D} B={B}")
+            print(f"ladder: B2 int8 scores N={N} D={D} B={B}: bitwise_equal=True launches=1 kernel_ms={k_ms} "
+                  f"({N * D / (k_ms * 1e-3) / 1e9:.1f} GB/s of rows, bound_share={b_ms / k_ms:.1%}) plain_ms={p_ms} "
+                  f"bound_ms={b_ms} ({b_by})")
+            del got, want
+        del rows, scales
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_ladder(torch, gen, dev, smi):
+    """OpenCLIP H/14 (vision head dim 80) and bigG (104) on the card: the
+    attention kernels at those head dims (and B1 at bigG's text shape B=32
+    S=77 H=20 causal), B9 at the widths of their fully fused vision blocks,
+    both towers at full width, each preset's server, H/14
+    served again under ISX_ATTN_PIPE=0 (B1p) and ISX_VIT_SPAD=264 (B6), and
+    B2 at the presets' row widths."""
+    res = {"kernels": {}, "towers": {}, "server": {}}
+    for name, Hd in LADDER.items():
+        res["kernels"][Hd] = ladder_kernels(torch, gen, dev, Hd)
+    res["bigg_text"] = check_attention_fwd(torch, gen, dev, "grouped", 32, 77, 20, True)
+    res["ln_matmul"] = {kn: check_ln_matmul(torch, gen, dev, 160 * 257, *kn) for kn in LADDER_LN_MATMUL}
+    torch.cuda.empty_cache()
+    for name in LADDER:
+        res["towers"][name] = ladder_towers(torch, gen, dev, name, smi)
+        res["server"][name] = ladder_server(torch, dev, name)
+    res["h14_routes"] = phase_server_routes(torch, dev, model="openclip-vit-H-14")
+    res["scores"] = ladder_scores(torch, gen, dev)
+    return res
+
+
 def _kernel_counts():
     from image_search_tpu_torch.ops import attention as A
     from image_search_tpu_torch.ops.blockmax import blockpair_mask, blockpair_values
@@ -1746,6 +2082,8 @@ def _reset_counts():
 
     for fn in _kernel_counts():
         fn.launches = 0
+        if hasattr(fn, "launches_by_hd"):
+            fn.launches_by_hd = {}
     stream_scores_int8.penalty_launches = 0
 
 
@@ -1755,6 +2093,13 @@ def _read_counts():
     out = {fn.__name__: fn.launches for fn in _kernel_counts()}
     out["stream_scores_int8_penalty"] = stream_scores_int8.penalty_launches
     return out
+
+
+def _read_counts_by_hd():
+    """The attention forward entry points' launches per head dim since the
+    last _reset_counts, as their wrappers counted them: {name: {Hd: n}}."""
+    return {fn.__name__: dict(fn.launches_by_hd) for fn in _kernel_counts()
+            if getattr(fn, "launches_by_hd", None)}
 
 
 def _groups(pairs, paths):
@@ -2316,6 +2661,71 @@ def phase_train_profile(torch, dev):
     return {"ms_per_step": statistics.median(times), "profiled_wall_ms": wall, "device_ms": split}
 
 
+def ptxas_attention(log_path):
+    """The registers and spill bytes that ptxas reported (``-Xptxas -v``, in
+    the build's nvcc.log) for each instantiation of the attention forward
+    kernel: [{Hd, norm_p, key_tiles, registers, spill_stores, spill_loads}]."""
+    import re
+
+    rows, cur = [], None
+    for line in open(log_path, errors="replace"):
+        m = re.search(r"Compiling entry function '_ZN8attn_fwd15attn_fwd_kernelILi(\d+)ELb(\d)ELi(\d+)E", line)
+        if m:
+            cur = {"Hd": int(m[1]), "norm_p": m[2] == "1", "key_tiles": int(m[3])}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur |= {"spill_stores": int(m[1]), "spill_loads": int(m[2])}
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append(cur | {"registers": int(m[1])})
+            cur = None
+    return sorted(rows, key=lambda r: (r["Hd"], r["norm_p"], r["key_tiles"]))
+
+
+def _laps():
+    """lap(name) prints the seconds since the previous lap (or the first call)."""
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    return lap
+
+
+def entry(name, source, replaces, path_launches, row, max_abs_err):
+    """One kernel of the ``kernels`` line."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    return {"name": name, "route": "cuda", "source": "image_search_tpu_torch/csrc/" + source,
+            "replaces": "image_search_tpu/ops/" + replaces, "launches": path_launches,
+            "max_abs_err": max_abs_err, **{k: row[k] for k in keys}}
+
+
+def ladder_entries(ladder):
+    """The ``kernels`` line's entries at the ladder's vision head dims, from
+    phase_ladder's result: launches at that head dim as the wrappers counted
+    them, of B1 in the preset's served /scan + /search and /search_image, of
+    the others in the vision forward on their route (B7: the fully fused
+    blocks)."""
+    rows = []
+    for name, hd in LADDER.items():
+        res = ladder["kernels"][hd]
+        for kernel, replaces, core in LADDER_ENTRIES:
+            if core == "grouped":
+                launches = ladder["server"][name]["vision_b1"]
+            else:
+                route = "fully fused" if core == "qkv_packed" else core
+                launches = ladder["towers"][name]["routes"][route]["launches_by_hd"].get(kernel, {}).get(hd, 0)
+            err = max(res[core]["max_abs_err"], res[core].get("ragged_max_abs_err", 0.0),
+                      res["split"]["max_abs_err"] if core == "padded" else 0.0)
+            rows.append(entry(f"{kernel}_hd{hd}", f"attention_fwd_hd{hd}.cu", replaces, launches, res[core], err))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2352,27 +2762,36 @@ def main() -> int:
     print(f"build: {lib_path} in {time.perf_counter() - t0:.2f} s "
           f"({'compiled' if _build.build_seconds is not None else 'cached'})")
     _build.lib()
+    for row in ptxas_attention(lib_path.parent / "nvcc.log"):
+        print(f"ptxas: attention forward Hd={row['Hd']} {'B1p/B6/B7' if row['norm_p'] else 'B1'} "
+              f"key tiles={row['key_tiles']}: {row['registers']} registers, spill stores {row['spill_stores']} B, "
+              f"spill loads {row['spill_loads']} B")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    lap = _laps()
     kern = phase_kernels(torch, gen, dev)
+    lap("kernels")
     towers = phase_towers(torch, gen, dev, smi)
+    lap("towers")
     launches, dup = phase_server(torch, dev)
+    lap("server + duplicates")
     served = phase_server_routes(torch, dev)
+    lap("server routes")
     ts_launches, ts_times, ts = phase_twostage(torch, dev)
+    lap("two-stage")
     serving = phase_serving(torch, dev)
     sv_launches = serving["batched"]["launches"]
+    lap("serving")
+    ladder = phase_ladder(torch, gen, dev, smi)
+    lap("ladder")
     grad = phase_train_grad(torch, dev)
     ft = phase_finetune(torch, dev, smi)
     prof = phase_train_profile(torch, dev)
+    lap("training")
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "image_search_tpu" or m.startswith("image_search_tpu.") for m in sys.modules),
           "the port imported the JAX package")
 
-    def entry(name, source, replaces, path_launches, row, max_abs_err):
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-        return {"name": name, "route": "cuda", "source": "image_search_tpu_torch/csrc/" + source,
-                "replaces": "image_search_tpu/ops/" + replaces, "launches": path_launches,
-                "max_abs_err": max_abs_err, **{k: row[k] for k in keys}}
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -2408,6 +2827,7 @@ def main() -> int:
         entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:42",
               towers["fused"]["fully fused"]["launches"]["ln_matmul"], kern[("ln_matmul", 3072)],
               max(kern[("ln_matmul", 3072)]["max_abs_err"], kern[("ln_matmul", 4096)]["max_abs_err"])),
+        *ladder_entries(ladder),
     ], "img_per_s": towers["img_per_s"],
         "route_img_per_s": {r: v["img_per_s"] for r, v in towers["routes"].items()},
         "fused_block_img_per_s": {r: v["img_per_s"] for r, v in towers["fused"].items()},
@@ -2427,7 +2847,18 @@ def main() -> int:
                     "scan_img_per_s": {"cache_cold": serving["batched"]["scan_cold_img_per_s"],
                                        "cache_warm": serving["batched"]["scan_warm_img_per_s"]},
                     "first_request": serving["first_request"],
-                    "bf16_10m": {f"B{b}": serving["bf16_10m"][b] for b in (1, 8)}}}))
+                    "bf16_10m": {f"B{b}": serving["bf16_10m"][b] for b in (1, 8)}},
+        "ladder": {name: {"img_per_s": ladder["towers"][name]["img_per_s"],
+                          "text_ms": ladder["towers"][name]["text_ms"],
+                          "cos_image": ladder["towers"][name]["cos_image"],
+                          "cos_text": ladder["towers"][name]["cos_text"],
+                          "scan_s": ladder["server"][name]["scan_s"],
+                          "search_ms": ladder["server"][name]["search_ms"],
+                          "search_image_ms": ladder["server"][name]["search_image_ms"],
+                          "peak_gib": ladder["server"][name]["peak_gib"]} for name in LADDER}
+        | {"bigg_text_b1_ms": ladder["bigg_text"]["ms"],
+           "ln_matmul_ms": {f"K{k}_N{n}": v["ms"] for (k, n), v in ladder["ln_matmul"].items()},
+           "int8_scores_ms": {f"D{d}_B{b}": v["ms"] for (d, b), v in ladder["scores"].items()}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -57,9 +57,13 @@
 //      block's key tiles into one accumulator and the split tail's (keys at
 //      or past s_main, a multiple of 16 there) into another, added in f32;
 //   4. the grouped route's 1/sum, bf16 rounding and a 4-byte store per pair.
-// Head dims: HD is a template parameter, instantiated for 64 only; 32 and 80
-// are multiples of 16 and drop in, 104 (bigG) would pad the contraction to
-// 112 and the PV n-tiles to 13.
+// Head dims: HD is a template parameter (attention_fwd.cuh), built for 64
+// (ViT-L/14, and the text towers of OpenCLIP H/14 and bigG), 80 (H/14's
+// vision tower) and 104 (bigG's vision tower: the contraction padded
+// to 112 with zeros, PV in 13 n-tiles of 8, no store past column 104; see
+// attention_tc.cuh). Each head dim's kernels compile in a source of their
+// own (attention_fwd_hd80.cu, attention_fwd_hd104.cu). At HD = 104 and
+// S = 257, K and V take 130.6 KB of shared memory: one CTA an SM.
 //
 // What bounds it: bytes. At the vision shape (B=160 S=257 H=16) the function
 // moves q, k, v and out once, 4 x 160 x 257 x 1024 x 2 B = 337 MB, 0.1006 ms
@@ -71,64 +75,17 @@
 // the serial QK^T -> softmax -> PV of each warp at 8 warps an SM (the logits
 // take 136-160 of a thread's 255 registers); mma.sync reaches a fraction of
 // the tensor cores' wgmma rate.
-#include "attention_tc.cuh"
+#include "attention_fwd.cuh"
+
+namespace attn_fwd {
+ISX_ATTN_FWD_HD(extern, 80)
+ISX_ATTN_FWD_HD(extern, 104)
+}  // namespace attn_fwd
 
 namespace {
 
 using namespace attn_tc;
-
-// NORM_P false: the grouped kernel's rounding (bf16(e), accumulator * 1/sum);
-// true: the packed and split kernels' (bf16(e / sum), accumulator as is).
-// Rows 0..S-1 of q and o are computed; keys 0..n_keys-1 of k and v take part
-// (n_keys <= S, at most 16 * KT), summed as [0, s_main) then [s_main, n_keys).
-template <int HD, bool NORM_P, int KT>
-__global__ void __launch_bounds__(kThreads, 2)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                bf16* __restrict__ o, int S, int n_keys, int s_main,
-                long long q_ld, long long k_ld, long long v_ld, long long o_ld, int causal,
-                float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int n_tiles = (S + kTileRows - 1) / kTileRows;
-  int tile0, tile1;
-  cta_tiles(blockIdx.x, gridDim.x, n_tiles, tile0, tile1);
-  const int n_stage = causal ? min(min(tile1 * kTileRows, S), n_keys) : n_keys;  // keys any row here sees
-  const int rows = ceil16(n_stage);
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + (size_t)ceil16(n_keys) * row_ld(HD);
-  const long long tok0 = (long long)b * S, col = (long long)h * HD;
-
-  stage_rows<HD>(ks, k, k_ld, tok0, col, n_stage, rows);
-  cp_async_commit();
-  stage_rows<HD>(vs, v, v_ld, tok0, col, n_stage, rows);
-  cp_async_commit();
-
-  const int warp = threadIdx.x / 32;
-  const int kt_split = s_main < n_keys ? s_main / 16 : KT;  // first tail key tile
-  float s[2 * KT][4];
-  float mx[2], sum[2];
-  // every warp runs the same number of rounds, so the barrier of the first is uniform
-  const int rounds = (tile1 - tile0 + kWarps - 1) / kWarps;
-  cp_async_wait<1>();  // K has landed
-  __syncthreads();
-  for (int round = 0; round < rounds; ++round) {
-    const int tile = tile0 + warp + round * kWarps, r0 = tile * kTileRows;
-    const int nkt = (min(causal ? min(r0 + kTileRows, S) : S, n_keys) + 15) / 16;
-    if (tile < tile1) {
-      uint32_t qa[HD / 16][4];
-      load_a_rows<HD>(qa, q, q_ld, tok0, col, r0, S);
-      if (nkt == KT)
-        tile_softmax<HD, KT, true, NORM_P>(s, mx, sum, qa, ks, nkt, r0, n_keys, causal != 0, sm_scale);
-      else
-        tile_softmax<HD, KT, false, NORM_P>(s, mx, sum, qa, ks, nkt, r0, n_keys, causal != 0, sm_scale);
-    }
-    if (round == 0) {
-      cp_async_wait<0>();  // V has landed
-      __syncthreads();
-    }
-    if (tile < tile1) tile_pv_store<HD, NORM_P, KT>(s, sum, vs, o, o_ld, tok0, col, r0, S, nkt, kt_split);
-  }
-}
+using attn_fwd::launch_hd;
 
 // div_rn against the card's own division, for a test: out[i] = x[i] / y[i].
 __global__ void div_probe_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -137,43 +94,24 @@ __global__ void div_probe_kernel(const float* __restrict__ x, const float* __res
   if (i < n) out[i] = div_rn(x[i], y[i], __frcp_rn(y[i]));
 }
 
-size_t smem_bytes(int n_keys, int hd) { return 2 * (size_t)ceil16(n_keys) * row_ld(hd) * sizeof(bf16); }
-
-template <bool NORM_P, int KT>
-cudaError_t launch_kt(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                      long long q_ld, long long k_ld, long long v_ld, long long o_ld, int n_keys, int s_main,
-                      int causal, float sm_scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n_keys, 64);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<64, NORM_P, KT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(ctas_for((S + kTileRows - 1) / kTileRows), H, B);
-  attn_fwd_kernel<64, NORM_P, KT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, n_keys, s_main, q_ld, k_ld, v_ld, o_ld, causal, sm_scale);
-  return cudaGetLastError();
-}
-
 template <bool NORM_P>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
            int head_dim, long long q_ld, long long k_ld, long long v_ld, long long o_ld,
            int n_keys, int s_main, int causal, float sm_scale, void* stream) {
-  if (head_dim != 64 || B <= 0 || S <= 0 || H <= 0 || n_keys <= 0 || n_keys > S ||
+  if (B <= 0 || S <= 0 || H <= 0 || n_keys <= 0 || n_keys > S ||
       s_main <= 0 || s_main > n_keys || (s_main < n_keys && s_main % 16) || key_tiles_for(n_keys) == 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ISX_LAUNCH(KT)                                                                                   \
-  case KT:                                                                                               \
-    return (int)launch_kt<NORM_P, KT>(q, k, v, o, B, S, H, q_ld, k_ld, v_ld, o_ld, n_keys, s_main, causal, \
-                                      sm_scale, st);
-  switch (key_tiles_for(n_keys)) {
-    ISX_LAUNCH(5)
-    ISX_LAUNCH(9)
-    ISX_LAUNCH(17)
-    ISX_LAUNCH(kMaxKeyTiles)
+  switch (head_dim) {
+    case 64:
+      return launch_hd<64, NORM_P>(q, k, v, o, B, S, H, q_ld, k_ld, v_ld, o_ld, n_keys, s_main, causal, sm_scale, st);
+    case 80:
+      return launch_hd<80, NORM_P>(q, k, v, o, B, S, H, q_ld, k_ld, v_ld, o_ld, n_keys, s_main, causal, sm_scale, st);
+    case 104:
+      return launch_hd<104, NORM_P>(q, k, v, o, B, S, H, q_ld, k_ld, v_ld, o_ld, n_keys, s_main, causal, sm_scale,
+                                    st);
   }
-#undef ISX_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // a head dim not built
 }
 
 }  // namespace
@@ -182,7 +120,7 @@ extern "C" {
 
 // Dynamic shared memory the kernel needs when n_keys keys take part (the
 // wrapper checks it against the card's per-block limit before launching).
-size_t isx_attention_smem_bytes(int n_keys, int head_dim) { return smem_bytes(n_keys, head_dim); }
+size_t isx_attention_smem_bytes(int n_keys, int head_dim) { return attn_fwd::smem_bytes(n_keys, head_dim); }
 
 // The softmax's division (div_rn, as B1p, B6, B7 and B5 take it) over n
 // pairs: out = x / y. For a test against the card's div.rn.f32.

@@ -15,9 +15,16 @@
 // A fragment of the next product over those 16 columns: probabilities go
 // from the QK^T accumulators into the PV product without leaving registers.
 //
-// Shared-memory rows of K, V, Q or G are padded to HD + 8 bf16 (144 bytes at
-// HD = 64): 16-byte aligned for cp.async and ldmatrix, and the 8 rows an
-// ldmatrix phase reads fall on distinct banks.
+// Head dims that 16 does not divide (bigG's 104) pad the contraction to
+// kdim(HD) = 112: the q fragments' and the shared K rows' columns HD..111
+// are zeros, which no load reads from device memory (in the packed
+// [B, S, H*HD] layout they are the next head's), so QK^T sums the same
+// products; PV runs HD / 8 output n-tiles (13 at 104, the last one on its
+// own) and never stores a column at or past HD.
+//
+// Shared-memory rows of K, V, Q or G are padded to kdim(HD) + 8 bf16 (144
+// bytes at HD = 64, 176 at 80, 240 at 104): 16-byte aligned for cp.async and
+// ldmatrix, and the 8 rows an ldmatrix phase reads fall on distinct banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,7 +42,10 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = 16;         // rows per warp tile (the MMA's M)
 constexpr int kMaxKeyTiles = 20;      // 16-key tiles a warp holds in registers: 320 keys
 
-__host__ __device__ constexpr int row_ld(int hd) { return hd + 8; }
+// The contraction depth of a head: HD padded to the MMA's k of 16.
+__host__ __device__ constexpr int kdim(int hd) { return (hd + 15) / 16 * 16; }
+__host__ __device__ constexpr int ksteps(int hd) { return kdim(hd) / 16; }
+__host__ __device__ constexpr int row_ld(int hd) { return kdim(hd) + 8; }
 __host__ __device__ inline int ceil16(int n) { return (n + 15) / 16 * 16; }
 
 // The register budget of a warp's logits: the smallest instantiated count of
@@ -71,15 +81,19 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Rows [row0, row0 + n_rows) of one head of x (row stride ld) into shared
-// rows 0..ceil16(n_rows)-1 of stride row_ld(HD), zero past n_real rows.
+// rows 0..ceil16(n_rows)-1 of stride row_ld(HD), zero past n_real rows and
+// in the padded columns HD..kdim(HD)-1 (never read from x).
 template <int HD>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ x, long long ld,
                                            long long tok0, long long col, int n_real, int n_rows) {
-  constexpr int CH = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < n_rows * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool real = r < n_real;
-    cp_async16(dst + r * row_ld(HD) + c * 8, x + (tok0 + (real ? r : 0)) * ld + col + c * 8, real);
+  static_assert(HD % 8 == 0, "a head is whole 16-byte chunks");
+  constexpr int CH = HD / 8;         // 16-byte chunks of the head per row
+  constexpr int KCH = kdim(HD) / 8;  // chunks per shared row: CH, or CH + 1 zero-filled
+  for (int i = threadIdx.x; i < n_rows * KCH; i += kThreads) {
+    const int r = i / KCH, c = i % KCH;
+    const bool real = r < n_real && (KCH == CH || c < CH);
+    const int src_c = KCH == CH ? c : min(c, CH - 1);  // a mapped address even where nothing is read
+    cp_async16(dst + r * row_ld(HD) + c * 8, x + (tok0 + (r < n_real ? r : 0)) * ld + col + src_c * 8, real);
   }
 }
 
@@ -92,6 +106,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// Two 8 x 8 matrices, transposed: lanes 0-7 address the first, 8-15 the second.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
 
@@ -112,47 +133,52 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-// The A fragments (all HD/16 k-steps) of rows r0..r0+15 of one head of x,
-// read straight from global memory (x is read once per tile); rows at or
-// past S are zero.
+// The A fragments (all ksteps(HD) k-steps) of rows r0..r0+15 of one head of
+// x, read straight from global memory (x is read once per tile); rows at or
+// past S are zero, and so are the columns at or past HD of a padded last
+// k-step (its upper 8 columns at HD = 104), which are never read.
 template <int HD>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[HD / 16][4], const bf16* __restrict__ x,
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[ksteps(HD)][4], const bf16* __restrict__ x,
                                             long long ld, long long tok0, long long col, int r0, int S) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const bool ok0 = r0 + g < S, ok1 = r0 + g + 8 < S;
   const bf16* x0 = x + (tok0 + (ok0 ? r0 + g : 0)) * ld + col + 2 * t;
   const bf16* x1 = x + (tok0 + (ok1 ? r0 + g + 8 : 0)) * ld + col + 2 * t;
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
+  for (int ks = 0; ks < ksteps(HD); ++ks) {
+    const bool hi = ks * 16 + 8 < HD;  // the k-step's upper 8 columns lie in the head
     a[ks][0] = ok0 ? ld32(x0 + ks * 16) : 0u;
     a[ks][1] = ok1 ? ld32(x1 + ks * 16) : 0u;
-    a[ks][2] = ok0 ? ld32(x0 + ks * 16 + 8) : 0u;
-    a[ks][3] = ok1 ? ld32(x1 + ks * 16 + 8) : 0u;
+    a[ks][2] = ok0 && hi ? ld32(x0 + ks * 16 + 8) : 0u;
+    a[ks][3] = ok1 && hi ? ld32(x1 + ks * 16 + 8) : 0u;
   }
 }
 
-// The A fragments (all k-steps) of rows r0..r0+15 of a shared tile.
+// The A fragments (all k-steps) of rows r0..r0+15 of a shared tile. B8
+// only, built at head dims that 16 divides (its q rows have no zero pad).
 template <int HD>
-__device__ __forceinline__ void ldsm_a_rows(uint32_t (&a)[HD / 16][4], const bf16* s, int r0) {
+__device__ __forceinline__ void ldsm_a_rows(uint32_t (&a)[ksteps(HD)][4], const bf16* s, int r0) {
+  static_assert(HD % 16 == 0, "B8 is built at head dims that 16 divides");
   const int lane = threadIdx.x & 31;
   const bf16* p = s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * row_ld(HD) + (lane >> 4) * 8;
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) ldmatrix_x4(a[ks], p + ks * 16);
+  for (int ks = 0; ks < ksteps(HD); ++ks) ldmatrix_x4(a[ks], p + ks * 16);
 }
 
 // c0, c1 = a . x^T over the head dim for the two 8-row n-tiles of shared
 // rows j0..j0+15 of x (x as the B operand: keys or value rows as columns).
 // THE one order in which every logit and every dp is formed: both
-// accumulators from zero, k-steps 0..HD/16-1.
+// accumulators from zero, k-steps 0..ksteps(HD)-1 (a padded last k-step
+// multiplies zeros in both operands' columns past HD).
 template <int HD>
-__device__ __forceinline__ void tile_dot(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[HD / 16][4],
+__device__ __forceinline__ void tile_dot(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[ksteps(HD)][4],
                                          const bf16* xs, int j0) {
   const int lane = threadIdx.x & 31;
   const bf16* p = xs + (j0 + (lane & 7) + ((lane >> 4) << 3)) * row_ld(HD) + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int e = 0; e < 4; ++e) c0[e] = c1[e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
+  for (int ks = 0; ks < ksteps(HD); ++ks) {
     uint32_t b[4];
     ldmatrix_x4(b, p + ks * 16);
     mma_bf16(c0, a[ks], b[0], b[1]);
@@ -162,10 +188,12 @@ __device__ __forceinline__ void tile_dot(float (&c0)[4], float (&c1)[4], const u
 
 // The same product with x's fragments already in registers (b[n][ks] for
 // n-tile n, as loaded by load_b_cols): the same instructions in the same
-// order as tile_dot, so the same bits.
+// order as tile_dot, so the same bits. B5's column pass only, built at head
+// dims that 16 divides.
 template <int HD>
 __device__ __forceinline__ void tile_dot_regs(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[HD / 16][4],
                                               const uint32_t (&b)[2][HD / 16][2]) {
+  static_assert(HD % 16 == 0, "B5 is built at head dims that 16 divides");
 #pragma unroll
   for (int e = 0; e < 4; ++e) c0[e] = c1[e] = 0.f;
 #pragma unroll
@@ -180,6 +208,7 @@ __device__ __forceinline__ void tile_dot_regs(float (&c0)[4], float (&c1)[4], co
 template <int HD>
 __device__ __forceinline__ void load_b_cols(uint32_t (&b)[2][HD / 16][2], const bf16* __restrict__ x,
                                             long long ld, long long tok0, long long col, int j0, int n_real) {
+  static_assert(HD % 16 == 0, "B5 is built at head dims that 16 divides");
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
@@ -195,6 +224,8 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[2][HD / 16][2], const 
 
 // acc[2dp], acc[2dp+1] += a (16 x 16 over shared rows j0..j0+15 of x) .
 // x[j0..j0+15, dims]: x as the B operand with its rows as the contraction.
+// The HD / 8 output n-tiles go two to an ldmatrix.x4.trans; where 16 does
+// not divide HD, the last one alone (x2: lanes 0-15's addresses).
 template <int HD>
 __device__ __forceinline__ void tile_acc(float (&acc)[HD / 8][4], const uint32_t (&a)[4], const bf16* xs, int j0) {
   const int lane = threadIdx.x & 31;
@@ -205,6 +236,11 @@ __device__ __forceinline__ void tile_acc(float (&acc)[HD / 8][4], const uint32_t
     ldmatrix_x4_trans(b, p + dp * 16);
     mma_bf16(acc[2 * dp], a, b[0], b[1]);
     mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+  }
+  if constexpr (HD % 16 != 0) {
+    uint32_t b[2];
+    ldmatrix_x2_trans(b, p + HD / 16 * 16);
+    mma_bf16(acc[HD / 8 - 1], a, b[0], b[1]);
   }
 }
 
@@ -254,7 +290,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // FULL: nkt == KT, so no tile is guarded and the compiler sees one block.
 template <int HD, int KT, bool FULL, bool NORM>
 __device__ __forceinline__ void tile_softmax(float (&s)[2 * KT][4], float (&mx)[2], float (&sum)[2],
-                                             const uint32_t (&qa)[HD / 16][4], const bf16* ks, int nkt,
+                                             const uint32_t (&qa)[ksteps(HD)][4], const bf16* ks, int nkt,
                                              int r0, int n_keys, bool causal, float sm_scale) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   mx[0] = mx[1] = kNegInf;
@@ -318,7 +354,8 @@ __device__ __forceinline__ void tile_softmax(float (&s)[2 * KT][4], float (&mx)[
 // PV of one warp tile (rows r0..r0+15) from p in s, key tiles 0..nkt-1 of
 // V in shared memory: the main block's tiles (below kt_split) into one f32
 // accumulator, the split tail's into another, added main + tail; then the
-// grouped route's 1/sum, bf16 rounding and the rows below S stored.
+// grouped route's 1/sum, bf16 rounding and the rows below S stored, columns
+// 0..HD-1 of the head only.
 template <int HD, bool NORM_P, int KT>
 __device__ __forceinline__ void tile_pv_store(const float (&s)[2 * KT][4], const float (&sum)[2], const bf16* vs,
                                               bf16* __restrict__ o, long long o_ld, long long tok0, long long col,

@@ -15,9 +15,14 @@
 //
 // The reference rounds after every step (score_stream.py:70-74,
 // sharded_search.py:51); the epilogue uses __fmul_rn/__fadd_rn so nvcc can
-// never contract a multiply and an add into one FMA, and the scores are
-// bitwise equal to the reference's and to the plain PyTorch version's (the
-// int32 sum is exact, and below 2^24 for D <= 1040, so its conversion is too).
+// never contract a multiply and an add into one FMA. The int32 sum is exact
+// at any D, and its conversion to f32 rounds once (exact below 2^24, which
+// 127 * 127 * D stays under for any operands only at D <= 1040). The plain
+// PyTorch version sums exactly too (in f32 at D <= 1040, in f64 above), as
+// does the reference's s32 path, so the scores are bitwise equal to both at
+// any D, OpenCLIP bigG's 1280 included. The reference's bf16 path
+// (score_stream.py:60-64) sums in f32 and matches only while every partial
+// sum stays below 2^24, which 127 * 127 * 1280 can exceed.
 //
 // Design: an int8 tile GEMM, out tile [BM queries x 128 rows] per CTA, on
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 (the Pallas kernel feeds s8

@@ -14,19 +14,28 @@ pytree, and seeded random demo weights.
   ``[out, in]``.
 - :func:`init_params` makes the demo-mode random weights from a
   ``torch.Generator``, with the reference's distributions.
+- :func:`params_from_hf_state_dict` turns a HuggingFace ``CLIPModel``
+  state dict into the reference's parameter pytree, and
+  :func:`params_from_hf_dir` reads one from a local HF directory
+  (``model.safetensors``, or shards named by
+  ``model.safetensors.index.json``; F32, F16 or BF16) with this module's own
+  safetensors reader: no ``transformers``, no ``safetensors``.
+  :func:`convert_hf_model` writes a checkpoint from a local directory or,
+  through ``transformers`` imported then, from a hub id (``--from-hf``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from image_search_tpu_torch.config import CLIPConfig
+from image_search_tpu_torch.config import CLIPConfig, get_config
 from image_search_tpu_torch.models.clip import CLIP
 
 _ST_DTYPES = {
@@ -247,3 +256,138 @@ def init_params(cfg: CLIPConfig, generator: torch.Generator, device, dtype) -> D
             out[key] = (torch.ones if kind == "ones" else torch.zeros)(shape, device=device, dtype=dtype)
     out["logit_scale"] = torch.tensor(cfg.logit_scale_init, dtype=torch.float32, device=device)
     return out
+
+
+# -- HuggingFace CLIPModel weights (the reference's models/convert.py:31-191) --
+
+
+def _np(t) -> np.ndarray:
+    """A torch tensor or numpy array -> f32 numpy."""
+    if isinstance(t, np.ndarray):
+        return np.asarray(t, np.float32)
+    return t.detach().cpu().float().numpy()
+
+
+def _stack_tower_blocks(sd: Mapping[str, Any], prefix: str, num_layers: int) -> dict:
+    """HF per-layer weights -> stacked ``[L, ...]`` arrays, q/k/v fused into
+    one ``[L, D, 3D]`` projection, ``[in, out]`` weights."""
+
+    def lin(name):
+        w = np.stack([_np(sd[f"{prefix}.layers.{i}.{name}.weight"]).T for i in range(num_layers)])
+        b = np.stack([_np(sd[f"{prefix}.layers.{i}.{name}.bias"]) for i in range(num_layers)])
+        return w, b
+
+    def ln(name):
+        s = np.stack([_np(sd[f"{prefix}.layers.{i}.{name}.weight"]) for i in range(num_layers)])
+        b = np.stack([_np(sd[f"{prefix}.layers.{i}.{name}.bias"]) for i in range(num_layers)])
+        return s, b
+
+    (q_w, q_b), (k_w, k_b), (v_w, v_b) = (lin(f"self_attn.{n}_proj") for n in "qkv")
+    o_w, o_b = lin("self_attn.out_proj")
+    fc_w, fc_b = lin("mlp.fc1")
+    pj_w, pj_b = lin("mlp.fc2")
+    ln1_s, ln1_b = ln("layer_norm1")
+    ln2_s, ln2_b = ln("layer_norm2")
+    return {
+        "ln1_scale": ln1_s, "ln1_bias": ln1_b,
+        "qkv_w": np.concatenate([q_w, k_w, v_w], axis=2), "qkv_b": np.concatenate([q_b, k_b, v_b], axis=1),
+        "o_w": o_w, "o_b": o_b,
+        "ln2_scale": ln2_s, "ln2_bias": ln2_b,
+        "fc_w": fc_w, "fc_b": fc_b,
+        "proj_w": pj_w, "proj_b": pj_b,
+    }
+
+
+def params_from_hf_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """HF ``CLIPModel`` state dict (torch tensors or numpy arrays) -> the
+    reference's parameter pytree (nested dicts of f32 numpy arrays), as
+    ``image_search_tpu.models.convert.params_from_hf_state_dict`` builds it;
+    :func:`params_from_jax` takes it on to a ``CLIP`` state."""
+    if cfg.arch != "clip":
+        raise NotImplementedError(f"arch {cfg.arch!r}: only CLIP is ported so far (ROADMAP A.10)")
+    conv = _np(sd["vision_model.embeddings.patch_embedding.weight"])  # [D, C, p, p]
+    text = {
+        "token_embedding": _np(sd["text_model.embeddings.token_embedding.weight"]),
+        "position_embedding": _np(sd["text_model.embeddings.position_embedding.weight"]),
+        "blocks": _stack_tower_blocks(sd, "text_model.encoder", cfg.text.num_layers),
+        "final_ln_scale": _np(sd["text_model.final_layer_norm.weight"]),
+        "final_ln_bias": _np(sd["text_model.final_layer_norm.bias"]),
+        "projection": _np(sd["text_projection.weight"]).T,
+    }
+    vision = {
+        # [D, C, p, p] -> [p*p*C, D] in (ph, pw, c) order, as models.clip patchifies
+        "patch_embedding": conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0]),
+        "class_embedding": _np(sd["vision_model.embeddings.class_embedding"]).reshape(-1),
+        "position_embedding": _np(sd["vision_model.embeddings.position_embedding.weight"]),
+        "pre_ln_scale": _np(sd["vision_model.pre_layrnorm.weight"]),  # sic: HF's spelling
+        "pre_ln_bias": _np(sd["vision_model.pre_layrnorm.bias"]),
+        "blocks": _stack_tower_blocks(sd, "vision_model.encoder", cfg.vision.num_layers),
+        "post_ln_scale": _np(sd["vision_model.post_layernorm.weight"]),
+        "post_ln_bias": _np(sd["vision_model.post_layernorm.bias"]),
+        "projection": _np(sd["visual_projection.weight"]).T,
+    }
+    return {"text": text, "vision": vision, "logit_scale": _np(sd["logit_scale"]).reshape(())}
+
+
+def _read_hf_dir(path: str) -> Dict[str, np.ndarray]:
+    """The tensors of a local HF model directory: ``model.safetensors``, or
+    every shard that ``model.safetensors.index.json`` names (the published
+    H/14 and bigG directories are sharded)."""
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+    else:
+        files = ["model.safetensors"]
+    flat: Dict[str, np.ndarray] = {}
+    for name in files:
+        flat.update(read_safetensors(os.path.join(path, name))[0])
+    return flat
+
+
+def params_from_hf_dir(path: str, cfg: CLIPConfig) -> dict:
+    """A local HF model directory at configuration ``cfg`` -> the
+    reference's parameter pytree."""
+    return params_from_hf_state_dict(_read_hf_dir(path), cfg)
+
+
+# the hub repos of the bundled presets (the reference's HF_REPOS)
+HF_REPOS = {
+    "clip-vit-large-patch14": "openai/clip-vit-large-patch14",
+    "clip-vit-base-patch32": "openai/clip-vit-base-patch32",
+    "clip-vit-base-patch16": "openai/clip-vit-base-patch16",
+    "openclip-vit-H-14": "laion/CLIP-ViT-H-14-laion2B-s32B-b79K",
+    "openclip-vit-bigG-14": "laion/CLIP-ViT-bigG-14-laion2B-39B-b160k",
+    "siglip-base-patch16-224": "google/siglip-base-patch16-224",
+}
+TOKENIZER_FILES = ("vocab.json", "merges.txt")
+
+
+def convert_hf_model(model_ref: str, out_path: str, preset: str | None = None,
+                     tokenizer_out: str | None = None) -> CLIPConfig:
+    """Convert a HF CLIP model, both towers, into one checkpoint at
+    ``out_path`` (+ the BPE files into ``tokenizer_out``); returns its config.
+
+    ``model_ref`` is a local HF directory (read here, nothing imported) or a
+    hub id, fetched through ``transformers``, imported only then: offline, or
+    without the package, a hub id raises, and the engine goes on without.
+    The configuration is the preset named by ``preset`` (else by the last
+    part of ``model_ref``)."""
+    cfg = get_config((preset or model_ref).rstrip("/").split("/")[-1])
+    if cfg.arch != "clip":
+        raise NotImplementedError(f"arch {cfg.arch!r}: only CLIP is ported so far (ROADMAP A.10)")
+    if os.path.isdir(model_ref):
+        params = params_from_hf_dir(model_ref, cfg)
+        if tokenizer_out and all(os.path.exists(os.path.join(model_ref, n)) for n in TOKENIZER_FILES):
+            os.makedirs(tokenizer_out, exist_ok=True)
+            for name in TOKENIZER_FILES:
+                shutil.copyfile(os.path.join(model_ref, name), os.path.join(tokenizer_out, name))
+    else:
+        from transformers import AutoTokenizer, CLIPModel
+
+        params = params_from_hf_state_dict(CLIPModel.from_pretrained(model_ref).state_dict(), cfg)
+        if tokenizer_out:
+            os.makedirs(tokenizer_out, exist_ok=True)
+            AutoTokenizer.from_pretrained(model_ref, use_fast=False).save_vocabulary(tokenizer_out)
+    save_checkpoint(out_path, params, cfg)
+    return cfg

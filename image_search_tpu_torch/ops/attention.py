@@ -58,7 +58,11 @@ import torch.nn.functional as F
 from image_search_tpu_torch import _build
 
 NEG_INF = torch.finfo(torch.float32).min
-SUPPORTED_HEAD_DIMS = (64,)  # 80 (H/14) and 104 (bigG) come with the model ladder
+# the head dims each kernel is built at (csrc/attention.cu's dispatch,
+# attention_bwd.cu, qkv_attention.cu's kHd); a CUDA tensor at any other raises
+FWD_HEAD_DIMS = (64, 80, 104)  # B1, B1p, B6, B7: ViT-L/14; OpenCLIP H/14 and bigG vision
+BWD_HEAD_DIMS = (64,)  # B5
+QKV_HEAD_DIMS = (64,)  # B8
 MAX_KEYS = 320  # csrc/attention_tc.cuh: kMaxKeyTiles = 20 key tiles of 16 held in registers
 _TAIL = 8  # the split kernels' tail block: Sp = s_main + 8
 
@@ -182,7 +186,18 @@ def attention_bwd_reference(q, k, v, g, heads: int, causal: bool = False, sm_sca
     return tuple(t.to(dtype).reshape(B, S, DH) for t in (dq, dk, dv))
 
 
-def _check_cuda_operands(heads, q, k, v, *more):
+def _check_head_dim(what: str, D: int, heads: int, built) -> None:
+    """Raises NotImplementedError, naming the head dim, where ``what`` is not
+    built at D / heads: nothing below the wrapper may see it (the kernel
+    would answer cudaErrorInvalidValue)."""
+    if heads <= 0 or D % heads or D // heads not in built:
+        Hd = D // heads if heads > 0 and D % heads == 0 else f"{D}/{heads}"
+        raise NotImplementedError(
+            f"{what}: head dim {Hd} not built (built: {built}); ROADMAP B.1 lists the head dims still to build"
+        )
+
+
+def _check_cuda_operands(heads, q, k, v, *more, built=FWD_HEAD_DIMS, what="attention kernel"):
     B, S, DH = q.shape
     for name, t in (("q", q), ("k", k), ("v", v), *(("g", t) for t in more)):
         if t.device != q.device or t.dtype != torch.bfloat16:
@@ -194,11 +209,7 @@ def _check_cuda_operands(heads, q, k, v, *more):
                 f"attention kernel: {name} must be row-strided [B, S, H*Hd] with 16-byte aligned rows, "
                 f"strides {t.stride()}"
             )
-    if DH % heads or DH // heads not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(
-            f"attention kernel: head dim {DH // heads if heads else '?'} not built "
-            f"(built: {SUPPORTED_HEAD_DIMS})"
-        )
+    _check_head_dim(what, DH, heads, built)
     if S > MAX_KEYS:
         raise NotImplementedError(
             f"attention kernel: S={S} > {MAX_KEYS}: a row's logits live in registers "
@@ -210,6 +221,13 @@ def _check_smem(device, smem: int, S: int) -> None:
     limit = getattr(torch.cuda.get_device_properties(device), "shared_memory_per_block_optin", 232448)
     if smem > limit:
         raise ValueError(f"attention kernel: S={S} needs {smem} B of shared memory > {limit}")
+
+
+def _count(fn, Hd: int) -> None:
+    """One launch of ``fn``'s kernel: ``fn.launches`` counts every head dim,
+    ``fn.launches_by_hd[Hd]`` the launches at ``Hd``."""
+    fn.launches += 1
+    fn.launches_by_hd[Hd] = fn.launches_by_hd.get(Hd, 0) + 1
 
 
 def fused_attention(q, k, v, heads: int, causal: bool = False, sm_scale: float = 1.0):
@@ -239,11 +257,12 @@ def fused_attention(q, k, v, heads: int, causal: bool = False, sm_scale: float =
         int(causal), float(sm_scale), _build.stream_handle(q.device),
     )
     _build.check(rc, "attention kernel launch")
-    fused_attention.launches += 1
+    _count(fused_attention, Hd)
     return out
 
 
 fused_attention.launches = 0
+fused_attention.launches_by_hd = {}
 
 
 def _heads(t, heads: int):
@@ -279,11 +298,12 @@ def fused_attention_packed(q, k, v, heads: int, causal: bool = False, sm_scale: 
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_packed: no route for device {q.device}")
     out = _launch_normalized(q, k, v, heads, causal, sm_scale, S, S)
-    fused_attention_packed.launches += 1
+    _count(fused_attention_packed, DH // heads)
     return out
 
 
 fused_attention_packed.launches = 0
+fused_attention_packed.launches_by_hd = {}
 
 
 def fused_attention_split(q, k, v, heads: int, sm_scale: float = 1.0):
@@ -310,11 +330,12 @@ def fused_attention_split(q, k, v, heads: int, sm_scale: float = 1.0):
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_split: no route for device {q.device}")
     out = _launch_normalized(q, k, v, heads, False, sm_scale, S, s_main)
-    fused_attention_split.launches += 1
+    _count(fused_attention_split, DH // heads)
     return out
 
 
 fused_attention_split.launches = 0
+fused_attention_split.launches_by_hd = {}
 
 
 def fused_attention_split_padded(qp, kp, vp, heads: int, s_real: int, sm_scale: float = 1.0):
@@ -334,11 +355,12 @@ def fused_attention_split_padded(qp, kp, vp, heads: int, s_real: int, sm_scale: 
     if qp.device.type != "cuda":
         raise ValueError(f"fused_attention_split_padded: no route for device {qp.device}")
     out = _launch_normalized(qp, kp, vp, heads, False, sm_scale, s_real, Sp - _TAIL)
-    fused_attention_split_padded.launches += 1
+    _count(fused_attention_split_padded, DH // heads)
     return out
 
 
 fused_attention_split_padded.launches = 0
+fused_attention_split_padded.launches_by_hd = {}
 
 
 def fused_attention_bwd(q, k, v, g, heads: int, causal: bool = False, sm_scale: float = 1.0):
@@ -350,7 +372,7 @@ def fused_attention_bwd(q, k, v, g, heads: int, causal: bool = False, sm_scale: 
         return attention_bwd_reference(q, k, v, g, heads, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd: no route for device {q.device}")
-    _check_cuda_operands(heads, q, k, v, g)
+    _check_cuda_operands(heads, q, k, v, g, built=BWD_HEAD_DIMS, what="attention backward kernel")
     lib = _build.lib()
     Hd = DH // heads
     _check_smem(q.device, lib.isx_attention_bwd_smem_bytes(S, Hd), S)
@@ -430,11 +452,12 @@ def fused_attention_qkv_packed(qkv, heads: int, causal: bool = False, sm_scale: 
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_attention_qkv_packed: no route for device {qkv.device}")
     out = _launch_normalized(*_qkv_views(qkv), heads, causal, sm_scale, S, S)
-    fused_attention_qkv_packed.launches += 1
+    _count(fused_attention_qkv_packed, D3 // 3 // heads)
     return out
 
 
 fused_attention_qkv_packed.launches = 0
+fused_attention_qkv_packed.launches_by_hd = {}
 
 
 class AttentionQkvPackedCore(torch.autograd.Function):
@@ -473,11 +496,7 @@ def _check_qkv_operands(x, qkv_w, qkv_b, heads: int):
             raise ValueError(f"qkv attention kernel: {name} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"qkv attention kernel: {name} must be contiguous and 16-byte aligned")
-    if D % heads or D // heads not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(
-            f"qkv attention kernel: head dim {D // heads if heads else '?'} not built "
-            f"(built: {SUPPORTED_HEAD_DIMS})"
-        )
+    _check_head_dim("qkv attention kernel", D, heads, QKV_HEAD_DIMS)
     if S > MAX_KEYS:
         raise NotImplementedError(
             f"qkv attention kernel: S={S} > {MAX_KEYS}: a row's logits live in registers, as in B7"
@@ -491,7 +510,7 @@ def fused_qkv_attention(x, qkv_w, qkv_b, heads: int, causal: bool = False, sm_sc
     """B8: the qkv projection and attention in one kernel, x [B, S, D] (LN'd),
     qkv_w [3D, D] (``nn.Linear``'s layout, the reference's ``[D, 3D]``
     transposed), qkv_b [3D] -> [B, S, D]; q unscaled, ``sm_scale`` on the
-    f32 logits. On the card: bf16, head dim in ``SUPPORTED_HEAD_DIMS``,
+    f32 logits. On the card: bf16, head dim in ``QKV_HEAD_DIMS``,
     S <= ``MAX_KEYS``, contiguous operands; anything else raises."""
     B, S, D = x.shape
     if x.device.type == "cpu":

@@ -5,10 +5,12 @@ int8 query quantizer, and :func:`float_scores` for f32 and bf16 rows.
 score_stream.py::stream_scores_int8`` (Pallas ``_kernel``/``_kernel_pen``).
 On a CUDA tensor it launches ``csrc/score_stream.cu``; on a CPU tensor it runs
 :func:`scores_int8_reference`. The two are bitwise equal, and both are
-bitwise equal to the reference: the int8 dot is an exact integer (every
-partial sum is below 127 * 127 * D < 2^24 for D <= 1040, so an f32 matmul of
-the int8 values is exact too), and the epilogue rounds after every step in
-the reference's order.
+bitwise equal to the reference's s32 path: the int8 dot is summed exactly
+(the kernel in int32; the plain version in f32, exact while every partial
+sum stays below 2^24, which 127 * 127 * D does for any int8 operands at
+D <= 1040, and in f64 at wider rows: OpenCLIP H/14's 1024 takes f32,
+bigG's 1280 f64), its conversion to f32 rounds once, and the epilogue
+rounds after every step in the reference's order.
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ def quantize_queries_int8(x: torch.Tensor):
 
 def scores_int8_reference(rows, qi, qs, scales, limit: int, pens=None):
     """Plain version: [B, N] f32 masked scores."""
-    s = qi.float() @ rows.float().T  # exact integers (see module docstring)
+    exact = torch.float32 if 127 * 127 * rows.shape[1] < 2**24 else torch.float64  # see the module docstring
+    s = (qi.to(exact) @ rows.to(exact).T).float()
     s = s * qs[:, None]
     s = s * scales[None, :]
     if pens is not None:

@@ -18,9 +18,13 @@ index's approximate top-k (answered exactly, in ``lax.top_k``'s order).
 ``--thumb-cache`` decodes from cached tiles; ``warm_serving_buckets`` runs
 each serving shape once before live traffic (``--batch-window-ms``).
 
+With ``--from-hf`` and no checkpoint file, the engine converts a local HF
+directory (or fetches a hub id through ``transformers``) into the
+checkpoint at startup; a failure degrades to a warning, as in the
+reference.
+
 The engine runs on an explicit device (default ``cuda``). Flags for what is
-not ported yet raise at construction: meshes, ``--from-hf`` and the
-profiler.
+not ported yet raise at construction: meshes and the profiler.
 """
 
 from __future__ import annotations
@@ -40,7 +44,9 @@ from image_search_tpu_torch.config import get_config
 from image_search_tpu_torch.index.index import NEG_INF, EmbeddingStore, VectorIndex
 from image_search_tpu_torch.ingest.decode import decode_image_bytes
 from image_search_tpu_torch.ingest.pipeline import ScanStats, scan_directory
-from image_search_tpu_torch.models.convert import build_model, init_params, load_checkpoint, params_from_jax
+from image_search_tpu_torch.models.convert import (
+    HF_REPOS, build_model, convert_hf_model, init_params, load_checkpoint, params_from_jax,
+)
 from image_search_tpu_torch.models.embedder import ClipEmbedder
 from image_search_tpu_torch.server.args import ServerArgs
 from image_search_tpu_torch.tokenizer import CLIPBPETokenizer, HashTokenizer
@@ -57,8 +63,6 @@ def unsupported_flags(args) -> List[str]:
     out = []
     if args.mesh_data is not None or args.mesh_model != 1:
         out.append("--mesh-data/--mesh-model")
-    if args.from_hf:
-        out.append("--from-hf")
     if args.profiler_port is not None:
         out.append("--profiler-port")
     return out
@@ -115,9 +119,27 @@ class SearchEngine:
             raise NotImplementedError("not ported yet: --compute-dtype float32 on cuda (bf16 kernels)")
         return {"float32": torch.float32, "bfloat16": torch.bfloat16}[choice]
 
+    def _fetch_hf(self, path: str) -> None:
+        """--from-hf with no checkpoint at ``path``: convert the HF model into
+        one (``auto``: the preset's hub repo), and give a tokenizer directory
+        without ``vocab.json`` the model's BPE files; a failure (offline, no
+        ``transformers``, a bad directory) is a warning."""
+        ref = self.args.from_hf
+        if ref == "auto":
+            ref = HF_REPOS.get(self.args.model, self.args.model)
+        tok = self.args.tokenizer_dir
+        tok_out = tok if tok and not os.path.exists(os.path.join(tok, "vocab.json")) else None
+        try:
+            log.info("--from-hf: converting %s -> %s", ref, path)
+            convert_hf_model(ref, path, preset=self.args.model, tokenizer_out=tok_out)
+        except Exception as err:
+            log.warning("--from-hf %s failed (%s); continuing without", ref, err)
+
     def _load_model(self):
         dtype = self._compute_dtype()
         path = self.args.model_weights
+        if not os.path.exists(path) and self.args.from_hf:
+            self._fetch_hf(path)
         if os.path.exists(path):
             params, cfg = load_checkpoint(path)
             log.info("loaded checkpoint %s (%s)", path, cfg.name)

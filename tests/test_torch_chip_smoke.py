@@ -62,8 +62,9 @@ def _load():
 
 def test_kernels_line_lists_every_ported_kernel():
     """The ``kernels`` line's entries (the ``entry(...)`` calls in ``main``):
-    B1, B1p, B2, B3, B4, B5, B6, B7, B8 and B9, each naming a source that
-    exists and the line of the Pallas kernel body it replaces."""
+    B1, B1p, B2, B3, B4, B5, B6, B7, B8 and B9, then B1, B1p, B6 and B7 at
+    the ladder's head dims 80 and 104, each naming a source that exists and
+    the line of the Pallas kernel body it replaces."""
     import ast
 
     with open(SCRIPT) as f:
@@ -83,12 +84,22 @@ def test_kernels_line_lists_every_ported_kernel():
         "fused_attention_qkv_packed": "_attn_kernel_packed", "fused_qkv_attention": "_qkv_attn_kernel",
         "ln_matmul": "_ln_mm_kernel",
     }
+    # and the same kernels at the ladder's vision head dims (ladder_entries):
+    # B1, B1p, B6 and B7 at H/14's 80 and bigG's 104, each from its own source
+    mod = _load()
+    assert mod.LADDER == {"openclip-vit-H-14": 80, "openclip-vit-bigG-14": 104}
+    assert [e[0] for e in mod.LADDER_ENTRIES] == [
+        "fused_attention", "fused_attention_packed", "fused_attention_split_padded", "fused_attention_qkv_packed",
+    ]
+    assert "ladder_entries(ladder)" in ast.unparse(main)
+    rows += [(f"{name}_hd{hd}", f"attention_fwd_hd{hd}.cu", replaces)
+             for hd in mod.LADDER.values() for name, replaces, _ in mod.LADDER_ENTRIES]
     for name, source, replaces in rows:
         assert os.path.exists(os.path.join(REPO, "image_search_tpu_torch", "csrc", source)), source
         path, line = replaces.split(":")
         with open(os.path.join(REPO, "image_search_tpu", "ops", path)) as f:
             text = f.read().splitlines()[int(line) - 1]
-        assert text.startswith(f"def {bodies[name]}("), (name, text)
+        assert text.startswith(f"def {bodies[name.split('_hd')[0]]}("), (name, text)
 
 
 def test_route_switches_select_their_route_and_are_restored(monkeypatch):
@@ -145,3 +156,25 @@ def test_serving_phase_runs_after_the_two_stage_phase():
     assert "sv_launches" in ast.unparse(main)
     mod = _load()
     assert mod.BF16_ROWS == 10_000_000 and (mod.SERVE_CLIENTS, mod.SERVE_ROUNDS) == (32, 8)
+
+
+def test_launches_per_head_dim_are_read_and_reset(monkeypatch):
+    """The smoke reads each attention forward entry point's launches per head
+    dim as the wrapper counts them (``_count`` at the launch site), and its
+    reset clears them with the totals."""
+    from image_search_tpu_torch.ops import attention
+
+    mod = _load()
+    for fn in mod._kernel_counts():
+        monkeypatch.setattr(fn, "launches", 0)
+        if hasattr(fn, "launches_by_hd"):
+            monkeypatch.setattr(fn, "launches_by_hd", {})
+    attention._count(attention.fused_attention, 80)
+    attention._count(attention.fused_attention, 80)
+    attention._count(attention.fused_attention, 64)
+    attention._count(attention.fused_attention_qkv_packed, 104)
+    assert mod._read_counts_by_hd() == {"fused_attention": {80: 2, 64: 1}, "fused_attention_qkv_packed": {104: 1}}
+    assert mod._read_counts()["fused_attention"] == 3
+    mod._reset_counts()
+    assert mod._read_counts_by_hd() == {}
+    assert mod._read_counts()["fused_attention"] == 0

@@ -39,22 +39,33 @@ def dev():
     return torch.device("cuda", 0)
 
 
+# the forward family's head dims: ViT-L/14 (and every text tower), OpenCLIP
+# H/14's vision tower, bigG's (the contraction padded to 112)
+HEAD_DIMS = [64, 80, 104]
+
+
+def _seed(base: int, Hd: int) -> int:
+    """A case's seed: ``base`` at Hd 64, else offset by the head dim."""
+    return base if Hd == 64 else base + Hd
+
+
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False)])
-def test_attention_kernel_matches_plain(dev, B, S, H, causal):
-    g = torch.Generator(device=dev).manual_seed(B * S)
-    D = H * 64
+def test_attention_kernel_matches_plain(dev, B, S, H, causal, Hd):
+    g = torch.Generator(device=dev).manual_seed(_seed(B * S, Hd))
+    D = H * Hd
     qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).bfloat16()
-    q = qkv[..., :D] * 0.125
+    q = qkv[..., :D] * Hd**-0.5
     k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
     n0 = fused_attention.launches
     got = fused_attention(q, k, v, H, causal)
     torch.cuda.synchronize()
     assert fused_attention.launches == n0 + 1
-    split = lambda t: t.reshape(B, S, H, 64)
+    split = lambda t: t.reshape(B, S, H, Hd)
     want = attention_reference(split(q), split(k), split(v), causal).reshape(B, S, D)
     want32 = attention_reference(split(q).float(), split(k).float(), split(v).float(), causal).reshape(B, S, D)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
-    assert F.cosine_similarity(got.float().reshape(-1, 64), want32.reshape(-1, 64), dim=-1).min() >= 0.9999
+    assert F.cosine_similarity(got.float().reshape(-1, Hd), want32.reshape(-1, Hd), dim=-1).min() >= 0.9999
 
 
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
@@ -66,65 +77,68 @@ def test_attention_kernel_rejects_what_it_cannot_take(dev):
         fused_attention(y, y, y, 4)  # Hd = 16
 
 
-def _tower_qkv(dev, B, S, H, seed):
-    """The tower's layout: q scaled and contiguous, k and v strided column
-    blocks of one fused qkv projection."""
+def _tower_qkv(dev, B, S, H, seed, Hd=64):
+    """The tower's layout: q scaled by Hd^-0.5 and contiguous, k and v strided
+    column blocks of one fused qkv projection."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    D = H * 64
+    D = H * Hd
     qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).bfloat16()
-    return qkv[..., :D] * 0.125, qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    return qkv[..., :D] * Hd**-0.5, qkv[..., D : 2 * D], qkv[..., 2 * D :]
 
 
-def _close_to_plain(got, want, want32):
+def _close_to_plain(got, want, want32, Hd=64):
     """bf16 kernel vs bf16 plain within 2e-2, and per head vector cosine >=
     0.9999 against the f32 plain version (chip_smoke.py's ATTN_* bounds)."""
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
-    assert F.cosine_similarity(got.float().reshape(-1, 64), want32.float().reshape(-1, 64), dim=-1).min() >= 0.9999
+    assert F.cosine_similarity(got.float().reshape(-1, Hd), want32.float().reshape(-1, Hd), dim=-1).min() >= 0.9999
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False)])
-def test_packed_kernel_matches_plain(dev, B, S, H, causal):
+def test_packed_kernel_matches_plain(dev, B, S, H, causal, Hd):
     """B1p, the route under ISX_ATTN_PIPE=0."""
-    q, k, v = _tower_qkv(dev, B, S, H, B * S + 2)
+    q, k, v = _tower_qkv(dev, B, S, H, _seed(B * S + 2, Hd), Hd)
     n0 = attn.fused_attention_packed.launches
     got = attn.fused_attention_packed(q, k, v, H, causal)
     torch.cuda.synchronize()
     assert attn.fused_attention_packed.launches == n0 + 1
-    split = lambda t: t.reshape(B, S, H, 64)
-    want = attn.attention_packed_reference(split(q), split(k), split(v), causal).reshape(B, S, H * 64)
-    want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal).reshape(B, S, H * 64)
-    _close_to_plain(got, want, want32)
+    split = lambda t: t.reshape(B, S, H, Hd)
+    want = attn.attention_packed_reference(split(q), split(k), split(v), causal).reshape(B, S, H * Hd)
+    want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal).reshape(B, S, H * Hd)
+    _close_to_plain(got, want, want32, Hd)
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,H", [(2, 257, 16), (3, 129, 4), (1, 136, 2)])
-def test_split_kernel_matches_plain(dev, B, S, H):
+def test_split_kernel_matches_plain(dev, B, S, H, Hd):
     """B6 on unpadded operands, the route under ISX_ATTN_SPLIT=1."""
-    q, k, v = _tower_qkv(dev, B, S, H, B * S + 3)
+    q, k, v = _tower_qkv(dev, B, S, H, _seed(B * S + 3, Hd), Hd)
     n0 = attn.fused_attention_split.launches
     got = attn.fused_attention_split(q, k, v, H)
     torch.cuda.synchronize()
     assert attn.fused_attention_split.launches == n0 + 1
     want = attn.fused_attention_split(q.cpu(), k.cpu(), v.cpu(), H)
     want32 = attn.fused_attention_split(q.cpu().float(), k.cpu().float(), v.cpu().float(), H)
-    _close_to_plain(got.cpu(), want, want32)
+    _close_to_plain(got.cpu(), want, want32, Hd)
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,H", [(2, 257, 16), (3, 129, 4), (1, 136, 2)])
-def test_split_padded_kernel_matches_plain_and_skips_pad_keys(dev, B, S, H):
+def test_split_padded_kernel_matches_plain_and_skips_pad_keys(dev, B, S, H, Hd):
     """B6 on operands padded to Sp rows, the route under ISX_VIT_SPAD: every
     row against the plain version, and inf/NaN in the pad rows of k and v
     change nothing (pad keys are skipped by index)."""
     Sp = (S // 128) * 128 + 8
-    q, k, v = _tower_qkv(dev, B, Sp, H, B * S + 4)
+    q, k, v = _tower_qkv(dev, B, Sp, H, _seed(B * S + 4, Hd), Hd)
     n0 = attn.fused_attention_split_padded.launches
     got = attn.fused_attention_split_padded(q, k, v, H, S)
     torch.cuda.synchronize()
     assert attn.fused_attention_split_padded.launches == n0 + 1
-    split = lambda t: t.reshape(B, Sp, H, 64)
-    want = attn.attention_split_reference(split(q), split(k), split(v), S).reshape(B, Sp, H * 64)
-    want32 = attn.attention_split_reference(*(split(t).float() for t in (q, k, v)), S).reshape(B, Sp, H * 64)
-    _close_to_plain(got, want, want32)
+    split = lambda t: t.reshape(B, Sp, H, Hd)
+    want = attn.attention_split_reference(split(q), split(k), split(v), S).reshape(B, Sp, H * Hd)
+    want32 = attn.attention_split_reference(*(split(t).float() for t in (q, k, v)), S).reshape(B, Sp, H * Hd)
+    _close_to_plain(got, want, want32, Hd)
     k2, v2 = k.clone(), v.clone()
     k2[:, S:] = float("inf")
     v2[:, S:] = float("nan")
@@ -502,31 +516,32 @@ def test_train_step_takes_each_route_with_b5(dev, monkeypatch, route):
 # --- B7, B8 and B9 and the fused-block compositions ---------------------------------
 
 
-def _packed_qkv(dev, B, S, H, seed):
+def _packed_qkv(dev, B, S, H, seed, Hd=64):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randn(B, S, 3 * H * 64, generator=g, device=dev).bfloat16()
+    return torch.randn(B, S, 3 * H * Hd, generator=g, device=dev).bfloat16()
 
 
-def _views(qkv, H):
-    D = H * 64
+def _views(qkv):
+    D = qkv.shape[-1] // 3
     return qkv[..., :D], qkv[..., D : 2 * D], qkv[..., 2 * D :]
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,H,causal", [(2, 257, 16, False), (3, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False)])
-def test_qkv_packed_kernel_matches_plain_and_b1p_bitwise(dev, B, S, H, causal):
+def test_qkv_packed_kernel_matches_plain_and_b1p_bitwise(dev, B, S, H, causal, Hd):
     """B7 on the three column views with sm_scale 0.125 in the f32 logits:
     close to its plain version, and bitwise equal to B1p on (q * 0.125, k,
     v) at sm_scale 1 (a power of two scales q exactly in bf16)."""
-    qkv = _packed_qkv(dev, B, S, H, B * S + 5)
+    qkv = _packed_qkv(dev, B, S, H, _seed(B * S + 5, Hd), Hd)
     n0 = attn.fused_attention_qkv_packed.launches
     got = attn.fused_attention_qkv_packed(qkv, H, causal, 0.125)
     torch.cuda.synchronize()
     assert attn.fused_attention_qkv_packed.launches == n0 + 1
-    split = lambda t: t.reshape(B, S, H, 64)
-    q, k, v = _views(qkv, H)
-    want = attn.attention_packed_reference(split(q), split(k), split(v), causal, 0.125).reshape(B, S, H * 64)
-    want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal, 0.125).reshape(B, S, H * 64)
-    _close_to_plain(got, want, want32)
+    split = lambda t: t.reshape(B, S, H, Hd)
+    q, k, v = _views(qkv)
+    want = attn.attention_packed_reference(split(q), split(k), split(v), causal, 0.125).reshape(B, S, H * Hd)
+    want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal, 0.125).reshape(B, S, H * Hd)
+    _close_to_plain(got, want, want32, Hd)
     assert torch.equal(got, attn.fused_attention_packed(q * 0.125, k, v, H, causal))
 
 
@@ -538,7 +553,7 @@ def test_qkv_packed_core_backward_is_b5_on_the_views(dev, B, S, H, causal):
     (dqkv,) = torch.autograd.grad(attn.AttentionQkvPackedCore.apply(qkv, H, causal, 0.125), qkv, go)
     torch.cuda.synchronize()
     assert fused_attention_bwd.launches == n0 + 1
-    want = torch.cat(attention_bwd_reference(*_views(qkv.detach(), H), go, H, causal, 0.125), dim=-1)
+    want = torch.cat(attention_bwd_reference(*_views(qkv.detach()), go, H, causal, 0.125), dim=-1)
     assert dqkv.shape == qkv.shape and dqkv.dtype == torch.bfloat16
     assert (dqkv.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
 
@@ -609,6 +624,82 @@ def test_qkv_kernels_reject_what_they_cannot_take(dev):
         attn.fused_attention_qkv_packed(torch.zeros(1, 8, 384, device=dev), 2)
     with pytest.raises(NotImplementedError, match="head dim"):
         attn.fused_attention_qkv_packed(torch.zeros(1, 8, 384, device=dev, dtype=torch.bfloat16), 8)
+
+
+@pytest.mark.parametrize("Hd", [80, 104])
+def test_bwd_and_qkv_kernels_raise_at_the_ladder_head_dims(dev, Hd):
+    """B5 and B8 are built at head dim 64 only: at H/14's 80 and bigG's 104
+    they raise NotImplementedError naming the head dim and ROADMAP B.1, and
+    never reach a kernel; the forward at the same head dim runs."""
+    H = 2
+    x = torch.zeros(1, 8, H * Hd, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=f"head dim {Hd} not built.*ROADMAP B.1"):
+        fused_attention_bwd(x, x, x, x, H)
+    w = torch.zeros(3 * H * Hd, H * Hd, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(3 * H * Hd, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=f"head dim {Hd} not built.*ROADMAP B.1"):
+        attn.fused_qkv_attention(x, w, b, H)
+    with pytest.raises(NotImplementedError, match=f"head dim {Hd} not built.*ROADMAP B.1"):
+        attn.qkv_attention_probe(x, w, b, H)
+    assert fused_attention(x, x, x, H).shape == x.shape
+
+
+def _ladder_depth2(name):
+    """An OpenCLIP ladder preset at full width, both towers cut to 2 layers."""
+    import dataclasses
+
+    from image_search_tpu_torch.config import get_config
+
+    cfg = get_config(name)
+    return dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, num_layers=2), vision=dataclasses.replace(cfg.vision, num_layers=2)
+    )
+
+
+@pytest.mark.parametrize("name", ["openclip-vit-H-14", "openclip-vit-bigG-14"])
+def test_ladder_towers_launch_b1_at_their_head_dims(dev, name):
+    """H/14 (vision Hd 80) and bigG (Hd 104) at full width and depth 2: the
+    vision tower launches B1 once per layer but the last, so does the text
+    tower (Hd 64), and the bf16 card embeddings stay close to the f32 CPU
+    forward of the same weights (the repo's bf16 policy bound)."""
+    from image_search_tpu_torch.models.clip import encode_image, encode_text
+    from image_search_tpu_torch.models.convert import build_model, init_params
+
+    cfg = _ladder_depth2(name)
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    model = build_model(cfg, state, dev, torch.bfloat16)
+    px = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    ids = torch.randint(0, 49407, (4, 77), generator=torch.Generator().manual_seed(2))
+    ids[:, 9:] = 49407
+    with torch.no_grad():
+        n0 = _route_counts()
+        img = encode_image(model, px.to(dev))
+        n1 = _route_counts()
+        txt = encode_text(model, ids.to(dev))
+        n2 = _route_counts()
+        torch.cuda.synchronize()
+    assert _launched(n0, n1) == {"fused_attention": 1}
+    assert _launched(n1, n2) == {"fused_attention": 1}
+    cpu = build_model(cfg, {k: t.float().cpu() for k, t in state.items()}, "cpu", torch.float32)
+    with torch.no_grad():
+        assert F.cosine_similarity(img.float().cpu(), encode_image(cpu, px), dim=-1).min() >= 0.99
+        assert F.cosine_similarity(txt.float().cpu(), encode_text(cpu, ids), dim=-1).min() >= 0.99
+
+
+def test_ladder_train_step_fails_at_its_first_step_naming_the_head_dim(dev):
+    """Fine-tuning H/14 on the card: the forward runs (B1 at Hd 80), and the
+    first backward raises for B5's unbuilt head dim; nothing falls back."""
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.train.contrastive import adamw, make_train_step
+
+    cfg = _ladder_depth2("openclip-vit-H-14")
+    state = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    px = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    ids = torch.randint(0, 49407, (2, 77), generator=torch.Generator().manual_seed(2))
+    init_fn, step_fn = make_train_step(cfg, adamw(1e-4), torch.bfloat16, False, dev)
+    s = init_fn(build_model(cfg, state, dev, torch.float32, trainable=True))
+    with pytest.raises(NotImplementedError, match="head dim 80 not built.*ROADMAP B.1"):
+        step_fn(s, ids, px)
 
 
 @pytest.mark.parametrize(
@@ -702,27 +793,63 @@ def _forward(core, q, k, v, H, causal):
 
 def _forward_plain(core, q, k, v, H, causal):
     B, S, D = q.shape
-    split = lambda t: t.reshape(B, S, H, 64)
+    split = lambda t: t.reshape(B, S, H, D // H)
     ref = attention_reference if core == "grouped" else attn.attention_packed_reference
     return ref(*(split(t) for t in (q, k, v)), causal).reshape(B, S, D)
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("S", RAGGED_S)
 @pytest.mark.parametrize("core", ["grouped", "packed"])
-def test_forward_kernels_at_ragged_edges(dev, core, S, causal):
+def test_forward_kernels_at_ragged_edges(dev, core, S, causal, Hd):
     """B1 and B1p at every edge of the 16-row and 16-key tiles and of the
     4-tile CTAs (a lone ragged tile, a CTA taking a remainder): every row
     written (the output starts as NaN) and close to the plain version."""
     B, H = 2, 3
-    q, k, v = _tower_qkv(dev, B, S, H, 7 * S + causal)
-    torch.empty(B * S * H * 64 * 4, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
+    q, k, v = _tower_qkv(dev, B, S, H, _seed(7 * S + causal, Hd), Hd)
+    torch.empty(B * S * H * Hd * 4, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
     got = _forward(core, q, k, v, H, causal)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     want = _forward_plain(core, q, k, v, H, causal)
     want32 = _forward_plain(core, q.float(), k.float(), v.float(), H, causal)
-    _close_to_plain(got, want, want32)
+    _close_to_plain(got, want, want32, Hd)
+
+
+@pytest.mark.parametrize("core", ["grouped", "packed", "split", "padded", "qkv_packed"])
+def test_forward_kernels_keep_each_head_in_its_columns_at_hd104(dev, core):
+    """At Hd 104 the contraction is padded to 112 and PV runs 13 n-tiles:
+    columns 104-111 of a head are the next head's. Every head's v is a
+    distinct constant (head h: h + 1), so every output column must hold its
+    own head's constant (a convex combination of one value), whatever the
+    logits; a read or a store past a head's edge shows as another head's
+    value. The output starts as NaN, so a column never written shows too."""
+    B, S, H, Hd = 3, 257, 16, 104
+    D = H * Hd
+    g = torch.Generator(device=dev).manual_seed(104)
+    qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).bfloat16()
+    const = torch.arange(1, H + 1, device=dev, dtype=torch.float32).repeat_interleave(Hd)  # [D]
+    qkv[..., 2 * D :] = const.bfloat16()
+    q, k, v = _views(qkv)
+    q = q * Hd**-0.5
+    Sp = (S // 128) * 128 + 8
+    torch.empty(B * Sp * D * 4, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
+    if core == "grouped":
+        got = fused_attention(q, k, v, H)
+    elif core == "packed":
+        got = attn.fused_attention_packed(q, k, v, H)
+    elif core == "split":
+        got = attn.fused_attention_split(q, k, v, H)
+    elif core == "padded":
+        pad = lambda t: F.pad(t, (0, 0, 0, Sp - S))
+        got = attn.fused_attention_split_padded(pad(q), pad(k), pad(v), H, S)[:, :S]
+    else:
+        got = attn.fused_attention_qkv_packed(qkv, H, False, Hd**-0.5)
+    torch.cuda.synchronize()
+    rel = (got.float() / const - 1).abs()
+    assert torch.isfinite(rel).all()
+    assert rel.max().item() <= 2e-2  # neighbouring heads' constants differ by >= 1/16
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -733,7 +860,7 @@ def test_qkv_packed_kernel_on_strided_views_at_ragged_edges(dev, S, causal):
     B, H = 2, 4
     qkv = _packed_qkv(dev, B, S, H, 11 * S + causal)
     got = attn.fused_attention_qkv_packed(qkv, H, causal, 0.125)
-    q, k, v = _views(qkv, H)
+    q, k, v = _views(qkv)
     split = lambda t: t.reshape(B, S, H, 64)
     want = attn.attention_packed_reference(split(q), split(k), split(v), causal, 0.125).reshape(B, S, H * 64)
     want32 = attn.attention_packed_reference(*(split(t).float() for t in (q, k, v)), causal, 0.125)

@@ -11,6 +11,7 @@ path: decode, towers, index, Rocchio feedback, ranking and the wire format.
 
 import json
 import os
+import sys
 import threading
 import time
 import urllib.error
@@ -181,13 +182,26 @@ def test_rescan_is_idempotent(servers, scanned):
         ["--profiler-port", "9999"],
     ],
 )
-def test_unported_flags_raise_at_startup(flags):
-    """Meshes, --from-hf and the profiler still raise at startup; the
-    one-card flags are ported and parse to no refusal."""
+def test_unported_flags_raise_at_startup(flags, tmp_path, monkeypatch, caplog):
+    """Meshes and the profiler still raise at startup; the one-card flags are
+    ported and parse to no refusal. ``--from-hf auto`` is ported: where the
+    hub cannot be reached (here: ``transformers`` made unimportable, so no
+    request is ever tried) the engine warns and starts on random weights."""
     args, device = parse_args(flags + ["--device", "cpu"])
-    if flags[0] in ("--mesh-data", "--mesh-model", "--from-hf", "--profiler-port"):
+    if flags[0] in ("--mesh-data", "--mesh-model", "--profiler-port"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             SearchEngine(args, device=device)
+    elif flags[0] == "--from-hf":
+        monkeypatch.setitem(sys.modules, "transformers", None)
+        args, device = parse_args(flags + [
+            "--device", "cpu", "--model", "clip-tiny-test", "--media-dir", str(tmp_path / "pics"),
+            "--index-dir", str(tmp_path / "idx"), "--model-weights", str(tmp_path / "none.safetensors"),
+        ])
+        assert unsupported_flags(args) == []
+        with caplog.at_level("WARNING", logger="image_search_tpu_torch.server.engine"):
+            engine = SearchEngine(args, device=device)
+        assert "--from-hf clip-tiny-test failed" in caplog.text and "RANDOM" in caplog.text
+        assert engine.cfg.name == "clip-tiny-test" and not os.path.exists(tmp_path / "none.safetensors")
     else:
         assert unsupported_flags(args) == []
 
