@@ -25,7 +25,12 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    into attention (B8, also bitwise against B7 on the qkv its projection
    phase writes, and that phase timed alone) at the B1 shapes, and the
    fused LayerNorm -> matmul (B9) at the vision tower's 41,120 rows, ln1 ->
-   qkv and ln2 -> fc, beside F.layer_norm + F.linear and F.linear alone. The
+   qkv and ln2 -> fc, beside F.layer_norm + F.linear and F.linear alone; B5
+   at head dims 32 (the learned-retrieval example's vision B=48 S=65 H=4 and
+   text S=16 causal), 80 and 104 (B=64 S=257 H=16) beside SDPA's backward,
+   at the ragged edges S = 1, 33, 300, its row and column passes' p32/ds
+   maps bitwise equal (``isx_attention_bwd_probe``), and at 104 every head's
+   gradients bitwise unchanged with its neighbours' columns NaN. The
    attention kernels (B1, B1p, B5, B6, B7, B8) and B9, their plain versions
    and the PyTorch calls are timed by replaying a CUDA graph of 10 calls
    (device time: a text-size kernel is shorter than one launch from Python)
@@ -82,10 +87,11 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    top-k); (C) ``--search-approx`` answers equal the exact search;
 9. the OpenCLIP ladder, ``openclip-vit-H-14`` (vision head dim 80) and
    ``openclip-vit-bigG-14`` (104), seeded random weights made on the card:
-   B1, B1p, B6 (split and padded) and B7 at each head dim against their
-   plain versions at B=160 S=257 H=16, timed beside SDPA, at the ragged
-   edges S = 1, 33, 300, and with every head's v a distinct constant; B5
-   and B8 raising for those head dims; B1 at bigG's text shape; B9 at the
+   B1, B1p, B6 (split and padded) and B7 at each head dim and at 32 against
+   their plain versions at B=160 S=257 H=16, timed beside SDPA, at the
+   ragged edges S = 1, 33, 300, and with every head's v a distinct
+   constant; B8 raising for those head dims; B1 at Hd 32 at the
+   learned-retrieval towers' shapes and at bigG's text shape; B9 at the
    presets' widths (K 1280 and 1664); both towers at full width (img/s,
    text ms, launches per head dim on every route, depth 2 against f32 on
    the CPU); each preset's server (/scan, /search plain and with feedback,
@@ -102,7 +108,19 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    ``--checkpoint-dir``, once without and once with ``--remat``: the loss
    falls, the output checkpoint reads back with new weights, B1/B5 launch
    counts; ms/step, pairs/s, peak memory;
-12. a ``torch.profiler`` split of one batch-64 train step's device time.
+12. a ``torch.profiler`` split of one batch-64 train step's device time;
+13. fine-tuning the ladder: for H/14 and bigG a depth-2 train step on the
+   card against f32 on the CPU (global gradient cosine), then 6 steps of
+   16 pairs at full width and depth without and with remat (H/14 through
+   the fine-tune CLI from a random 3.7 GiB checkpoint, bigG through
+   ``make_train_step`` on its weights in memory): finite and falling
+   losses, weights that moved, B5 launched at Hd 80 / 104 in the vision
+   tower and 64 in the text tower, ms/step, pairs/s, peak memory;
+14. the learned-retrieval gate (``examples_torch/learned_retrieval.py``):
+   the reference's recipe on seeds 0, 1 and 2 must pass (bidirectional
+   R@1 >= 0.6, served p@5 >= 0.8 through POST /search, every query hit), a
+   run at lr 0 must fail, B1 and B5 launched at Hd 32 only; the gate's
+   towers under the packed route (B1p) and the fully fused blocks (B7).
 
 Each phase sets the attention route switches it needs and restores them
 after. The second-to-last line is a JSON object describing every kernel of
@@ -283,16 +301,18 @@ def threshold_between_maxima(torch, m, q: float) -> float:
     return float((v[i] + v[i + 1]) / 2)
 
 
-def check_attention_bwd(torch, gen, dev, B, S, H, causal):
-    """B5 against its plain version on the tower's layout (q scaled and
-    contiguous, k and v strided column blocks of one qkv projection), timed
-    beside the backward of scaled_dot_product_attention on the same inputs."""
+def check_attention_bwd(torch, gen, dev, B, S, H, causal, Hd=64, timed=True):
+    """B5 against its plain version on the tower's layout (q scaled by
+    Hd^-0.5 and contiguous, k and v strided column blocks of one qkv
+    projection), timed beside the backward of scaled_dot_product_attention
+    on the same inputs unless ``timed`` is false. At S = 1 the softmax has no
+    gradient: dq and dk must be exactly zero there."""
     from image_search_tpu_torch.ops.attention import attention_bwd_reference, fused_attention_bwd
 
     F = torch.nn.functional
-    D, Hd = H * 64, 64
+    D = H * Hd
     qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
-    q = qkv[..., :D] * 0.125
+    q = qkv[..., :D] * Hd**-0.5
     k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
     g = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
     got = fused_attention_bwd(q, k, v, g, H, causal)
@@ -300,14 +320,22 @@ def check_attention_bwd(torch, gen, dev, B, S, H, causal):
     want = attention_bwd_reference(q, k, v, g, H, causal)
     want32 = attention_bwd_reference(q.float(), k.float(), v.float(), g.float(), H, causal)
     heads = lambda t: t.float().reshape(B, S, H, Hd).permute(0, 2, 1, 3).reshape(B * H, S * Hd)
+    shape = f"B={B} S={S} H={H} Hd={Hd} causal={causal}"
     err, rel, cos = {}, {}, {}
     for name, a, b, c in zip(("dq", "dk", "dv"), got, want, want32):
         err[name] = (a.float() - b.float()).abs().max().item()
-        rel[name] = err[name] / b.float().abs().max().item()
-        cos[name] = F.cosine_similarity(heads(a), heads(c), dim=-1).min().item()
-        check(rel[name] <= BWD_MAX_REL, f"attention bwd B={B} S={S} {name}: max abs err {err[name]} "
+        rel[name] = err[name] / max(b.float().abs().max().item(), 1e-30)
+        a2, c2 = heads(a), heads(c)
+        live = c2.norm(dim=-1) > 0
+        check(bool(torch.isfinite(a2).all()) and torch.equal(a2[~live], torch.zeros_like(a2[~live])),
+              f"attention bwd {shape} {name}: not finite, or nonzero where the softmax has no gradient")
+        cos[name] = F.cosine_similarity(a2[live], c2[live], dim=-1).min().item() if live.any() else 1.0
+        check(rel[name] <= BWD_MAX_REL, f"attention bwd {shape} {name}: max abs err {err[name]} "
               f"= {rel[name]} x max|plain| > {BWD_MAX_REL}")
-        check(cos[name] >= BWD_MIN_COS, f"attention bwd B={B} S={S} {name}: min cosine {cos[name]} < {BWD_MIN_COS}")
+        check(cos[name] >= BWD_MIN_COS, f"attention bwd {shape} {name}: min cosine {cos[name]} < {BWD_MIN_COS}")
+    if not timed:
+        return dict(max_abs_err=max(err.values()), max_rel_err=max(rel.values()), min_cos=min(cos.values()),
+                    shape=shape)
     k_ms, p_ms = ab_ms(
         torch, lambda: attention_bwd_reference(q, k, v, g, H, causal),
         lambda: fused_attention_bwd(q, k, v, g, H, causal), iters=10, timer=graph_ms,
@@ -321,16 +349,117 @@ def check_attention_bwd(torch, gen, dev, B, S, H, causal):
     ops = 5 * 2 * B * H * pairs * Hd
     b_ms, b_by = bound(7 * B * S * D * 2, ops, BF16_FLOP_PER_S)
     print(
-        f"B5 attention bwd B={B} S={S} H={H} Hd=64 causal={causal}: max_abs_err={err} "
+        f"B5 attention bwd {shape}: max_abs_err={err} "
         f"(x max|plain|: {rel}) min_cos_vs_f32={cos} kernel_ms={k_ms} {achieved(ops, k_ms, b_ms)} plain_ms={p_ms} "
         f"sdpa_bwd_ms={both_ms - fwd_ms} (fwd+bwd {both_ms} - fwd {fwd_ms}) bound_ms={b_ms} ({b_by})"
         + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
     )
     return dict(
         max_abs_err=max(err.values()), max_rel_err=max(rel.values()), min_cos=min(cos.values()),
-        ms=k_ms, plain_ms=p_ms, library_ms=both_ms - fwd_ms, bound_ms=b_ms, bound_by=b_by,
-        shape=f"B={B} S={S} H={H} Hd=64 causal={causal}",
+        ms=k_ms, plain_ms=p_ms, library_ms=both_ms - fwd_ms, bound_ms=b_ms, bound_by=b_by, shape=shape,
     )
+
+
+def _bwd_probe(torch, q, k, v, g, H, causal):
+    """B5 through isx_attention_bwd_probe: (dq, dk, dv, probe maps [2 passes,
+    2 (p32, ds), B, H, S, S]); entries of masked pairs stay 0."""
+    from image_search_tpu_torch import _build
+
+    B, S, D = q.shape
+    dq, dk, dv = (torch.empty(B, S, D, dtype=q.dtype, device=q.device) for _ in range(3))
+    stats = torch.empty(3, B, H, S, device=q.device)
+    probe = torch.zeros(2, 2, B, H, S, S, device=q.device)
+    rc = _build.lib().isx_attention_bwd_probe(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats.data_ptr(), probe.data_ptr(), B, S, H, D // H, q.stride(1), k.stride(1), v.stride(1), g.stride(1),
+        int(causal), 1.0, _build.stream_handle(q.device),
+    )
+    _build.check(rc, "attention backward probe")
+    torch.cuda.synchronize()
+    return dq, dk, dv, probe
+
+
+def check_bwd_probe(torch, gen, dev, B, S, H, causal, Hd):
+    """B5's column pass recomputes p32 and ds from the row pass's statistics
+    with the same operands in the same roles and k-step order: the two
+    passes' maps must be bitwise equal, and the probed run's gradients
+    bitwise those of the entry point."""
+    from image_search_tpu_torch.ops.attention import fused_attention_bwd
+
+    D = H * Hd
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[..., :D] * Hd**-0.5, qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    g = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    *grads, probe = _bwd_probe(torch, q, k, v, g, H, causal)
+    shape = f"B={B} S={S} H={H} Hd={Hd} causal={causal}"
+    check(torch.equal(probe[0], probe[1]), f"B5 probe {shape}: the two passes' p32/ds maps differ")
+    check(all(torch.equal(a, b) for a, b in zip(grads, fused_attention_bwd(q, k, v, g, H, causal))),
+          f"B5 probe {shape}: the probed run's gradients differ from the entry point's")
+    return shape
+
+
+def check_bwd_isolation(torch, gen, dev, Hd, B=4, S=257, H=16):
+    """B5 keeps each head in its columns (at Hd 104 the padded k-step's
+    columns 104-111 are the next head's): for every head h, a copy of q, k,
+    v and g in which every OTHER head's columns are NaN must give head h's
+    gradient columns bitwise as the all-finite run gives them (a read of a
+    neighbour's column, even one multiplied by zero, would carry a NaN in),
+    and the all-finite run's outputs, in memory poisoned with NaN before the
+    launch, must be finite in every column (a column never written, or one
+    written by its neighbour, shows)."""
+    from image_search_tpu_torch.ops.attention import fused_attention_bwd
+
+    D = H * Hd
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[..., :D] * Hd**-0.5, qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    g = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    torch.empty(B * S * D * 8, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
+    full = fused_attention_bwd(q, k, v, g, H, False)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t.float()).all()) for t in full), f"B5 Hd={Hd}: a gradient column left unwritten")
+    for h in range(H):
+        cols = slice(h * Hd, (h + 1) * Hd)
+        alone = []
+        for t in (q, k, v, g):
+            x = torch.full((B, S, D), float("nan"), device=dev, dtype=torch.bfloat16)
+            x[..., cols] = t[..., cols]
+            alone.append(x)
+        got = fused_attention_bwd(*alone, H, False)
+        check(all(torch.equal(a[..., cols], b[..., cols]) for a, b in zip(got, full)),
+              f"B5 Hd={Hd}: head {h}'s gradients change when its neighbours' columns are NaN")
+    print(f"B5 per-head isolation B={B} S={S} H={H} Hd={Hd}: every head's dq, dk, dv bitwise unchanged with every "
+          f"other head's columns NaN, and every column written")
+    return True
+
+
+# B5 at the head dims beyond ViT-L/14's: the learned-retrieval example's
+# towers (Hd 32: vision B=48 S=65 H=4, text B=48 S=16 H=4 causal) and the
+# ladder's vision towers (Hd 80, 104: B=64 S=257 H=16)
+BWD_SHAPES = {32: ((48, 65, 4, False), (48, 16, 4, True)), 80: ((64, 257, 16, False),),
+              104: ((64, 257, 16, False),)}
+
+
+def bwd_head_dims(torch, gen, dev):
+    """B5 at Hd 32, 80 and 104: timed at BWD_SHAPES against its plain version
+    and SDPA's backward; at the ragged edges S = 1, 33 and 300 (causal and
+    not); the probe's two passes bitwise equal; the per-head isolation case
+    at 104."""
+    res = {}
+    for Hd, shapes in BWD_SHAPES.items():
+        for B, S, H, causal in shapes:
+            res[(Hd, S)] = check_attention_bwd(torch, gen, dev, B, S, H, causal, Hd=Hd)
+        ragged = [check_attention_bwd(torch, gen, dev, 4, S, 16, causal, Hd=Hd, timed=False)
+                  for S in (1, 33, 300) for causal in (False, True)]
+        probes = [check_bwd_probe(torch, gen, dev, 2, S, 4, causal, Hd)
+                  for S, causal in ((BWD_SHAPES[Hd][0][1], False), (77, True), (300, False), (17, True))]
+        res[(Hd, "ragged")] = dict(max_abs_err=max(r["max_abs_err"] for r in ragged),
+                                   max_rel_err=max(r["max_rel_err"] for r in ragged),
+                                   min_cos=min(r["min_cos"] for r in ragged))
+        print(f"B5 at Hd={Hd}, B=4 H=16, S in (1, 33, 300), causal and not: {res[(Hd, 'ragged')]}; probe passes "
+              f"bitwise equal at {probes}")
+        torch.cuda.empty_cache()
+    res["isolation"] = check_bwd_isolation(torch, gen, dev, 104)
+    return res
 
 
 def check_attention_fwd(torch, gen, dev, core: str, B, S, H, causal=False, s_real=None, Hd=64, timed=True):
@@ -567,6 +696,7 @@ def phase_kernels(torch, gen, dev):
 
     for B, S, H, causal in ((TRAIN_BATCH, 257, 16, False), (TRAIN_BATCH, 77, 12, True)):
         res[("attention_bwd", S)] = check_attention_bwd(torch, gen, dev, B, S, H, causal)
+    res["attention_bwd_hd"] = bwd_head_dims(torch, gen, dev)
 
     n0 = fused_qkv_attention.launches
     for B, S, H, causal in ((160, 257, 16, False), (32, 77, 12, True)):
@@ -1804,7 +1934,7 @@ def ladder_kernels(torch, gen, dev, Hd):
     """B1, B1p, B6 (split and padded) and B7 at the vision shape B=160 S=257
     H=16 and head dim Hd against their plain versions, timed beside SDPA; B1,
     B1p and B7 at the ragged edges S = 1, 33 and 300 (causal and not); the
-    per-head isolation case; B5 and B8 raise for the head dim."""
+    per-head isolation case; B8 (built at 64 only) raises for the head dim."""
     from image_search_tpu_torch.ops import attention as A
 
     res = {}
@@ -1825,13 +1955,11 @@ def ladder_kernels(torch, gen, dev, Hd):
     res["isolation"] = check_head_isolation(torch, gen, dev, Hd)
     x = torch.zeros(1, 8, 2 * Hd, device=dev, dtype=torch.bfloat16)
     w = torch.zeros(6 * Hd, 2 * Hd, device=dev, dtype=torch.bfloat16)
-    for what, call in (("B5", lambda: A.fused_attention_bwd(x, x, x, x, 2)),
-                       ("B8", lambda: A.fused_qkv_attention(x, w, w[:, 0].contiguous(), 2))):
-        try:
-            call()
-            raise SmokeFailure(f"{what} ran at head dim {Hd}: it is built at 64 only")
-        except NotImplementedError as err:
-            check(f"head dim {Hd} not built" in str(err), f"{what} at head dim {Hd}: {err}")
+    try:
+        A.fused_qkv_attention(x, w, w[:, 0].contiguous(), 2)
+        raise SmokeFailure(f"B8 ran at head dim {Hd}: it is built at 64 only")
+    except NotImplementedError as err:
+        check(f"head dim {Hd} not built" in str(err), f"B8 at head dim {Hd}: {err}")
     for core in ("grouped", "packed", "padded", "qkv_packed"):
         res[core]["ragged_max_abs_err"] = max(r["max_abs_err"] for r in ragged)
     return res
@@ -2047,14 +2175,19 @@ def ladder_scores(torch, gen, dev):
 
 def phase_ladder(torch, gen, dev, smi):
     """OpenCLIP H/14 (vision head dim 80) and bigG (104) on the card: the
-    attention kernels at those head dims (and B1 at bigG's text shape B=32
-    S=77 H=20 causal), B9 at the widths of their fully fused vision blocks,
+    attention kernels at those head dims and at 32 (the learned-retrieval
+    example's, with B1 also at its towers' shapes), B1 at bigG's text shape
+    B=32 S=77 H=20 causal, B9 at the widths of their fully fused vision blocks,
     both towers at full width, each preset's server, H/14
     served again under ISX_ATTN_PIPE=0 (B1p) and ISX_VIT_SPAD=264 (B6), and
     B2 at the presets' row widths."""
     res = {"kernels": {}, "towers": {}, "server": {}}
-    for name, Hd in LADDER.items():
+    for Hd in (*LADDER.values(), 32):
         res["kernels"][Hd] = ladder_kernels(torch, gen, dev, Hd)
+    # B1 at Hd 32 where the learned-retrieval example's towers run it: vision
+    # B=48 S=65 H=4, text B=48 S=16 H=4 causal
+    res["gate_b1"] = {S: check_attention_fwd(torch, gen, dev, "grouped", 48, S, 4, causal, Hd=32)
+                      for S, causal in ((65, False), (16, True))}
     res["bigg_text"] = check_attention_fwd(torch, gen, dev, "grouped", 32, 77, 20, True)
     res["ln_matmul"] = {kn: check_ln_matmul(torch, gen, dev, 160 * 257, *kn) for kn in LADDER_LN_MATMUL}
     torch.cuda.empty_cache()
@@ -2400,17 +2533,15 @@ def _cos(a_list, b_list) -> float:
     return dot / (na * nb)
 
 
-def phase_train_grad(torch, dev):
-    """One ViT-L/14 train step on the card (f32 master weights, bf16 compute)
-    against the same step in f32 on the CPU, same weights and batch."""
-    from image_search_tpu_torch.config import get_config
-    from image_search_tpu_torch.models.convert import build_model, init_params
+def _step_against_cpu(torch, dev, cfg, state, ids, pixels, what: str):
+    """One train step of ``cfg`` from ``state`` on the card (f32 master
+    weights, bf16 compute) and the same step in f32 on the CPU, same batch
+    -> (losses, gradients on the CPU, the card step's launches, its
+    launches per head dim), both keyed "card" / "cpu"."""
+    from image_search_tpu_torch.models.convert import build_model
     from image_search_tpu_torch.train.contrastive import adamw, make_train_step
 
-    cfg = get_config("clip-vit-large-patch14")
-    state = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev, torch.float32)
-    ids, pixels = _train_batch(torch, cfg, 8, seed=2)
-    grads, loss, counts = {}, {}, None
+    grads, loss, counts, by_hd = {}, {}, None, None
     for tag, where, dtype in (("card", dev, torch.bfloat16), ("cpu", torch.device("cpu"), torch.float32)):
         t0 = time.perf_counter()
         init_fn, step_fn = make_train_step(cfg, adamw(1e-5), dtype, False, where)
@@ -2421,11 +2552,36 @@ def phase_train_grad(torch, dev):
         loss[tag] = float(metrics["loss"])
         if tag == "card":
             torch.cuda.synchronize()
-            counts = _read_counts()
+            counts, by_hd = _read_counts(), _read_counts_by_hd()
         grads[tag] = {k: p.grad.detach().float().cpu() for k, p in st.model.named_parameters()}
-        print(f"train grad check: {tag} step ({dtype}) {time.perf_counter() - t0:.1f} s, loss {loss[tag]}")
+        print(f"{what}: {tag} step ({dtype}) {time.perf_counter() - t0:.1f} s, loss {loss[tag]}")
         del st, init_fn, step_fn
         torch.cuda.empty_cache()
+    return loss, grads, counts, by_hd
+
+
+def _grad_cosines(grads):
+    """The card's gradients against the CPU's: (global cosine, per tower,
+    the three lowest per-tensor cosines)."""
+    gc, gg = grads["card"], grads["cpu"]
+    names = sorted(gc)
+    glob = _cos([gc[n] for n in names], [gg[n] for n in names])
+    tower = {t: _cos([gc[n] for n in names if n.startswith(t)], [gg[n] for n in names if n.startswith(t)])
+             for t in ("vision.", "text.")}
+    return glob, tower, sorted((_cos([gc[n]], [gg[n]]), n) for n in names)[:3]
+
+
+def phase_train_grad(torch, dev):
+    """One ViT-L/14 train step on the card (f32 master weights, bf16 compute)
+    against the same step in f32 on the CPU, same weights and batch."""
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.train.contrastive import adamw, make_train_step
+
+    cfg = get_config("clip-vit-large-patch14")
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev, torch.float32)
+    ids, pixels = _train_batch(torch, cfg, 8, seed=2)
+    loss, grads, counts, _ = _step_against_cpu(torch, dev, cfg, state, ids, pixels, "train grad check")
     L_v, L_t = cfg.vision.num_layers - 1, cfg.text.num_layers - 1
     check(counts["fused_attention"] == L_v + L_t and counts["fused_attention_bwd"] == L_v + L_t,
           f"train step launches {counts}, want {L_v + L_t} of B1 and of B5")
@@ -2454,20 +2610,15 @@ def phase_train_grad(torch, dev):
         check(abs(r_loss - loss["card"]) <= 1e-2, f"{route} route loss {r_loss} vs default {loss['card']}")
         routes[route] = {"loss": r_loss, "launches": n}
     del state
-    gc, gg = grads["card"], grads["cpu"]
-    names = sorted(gc)
-    glob = _cos([gc[n] for n in names], [gg[n] for n in names])
-    tower = {t: _cos([gc[n] for n in names if n.startswith(t)], [gg[n] for n in names if n.startswith(t)])
-             for t in ("vision.", "text.")}
-    per = sorted((_cos([gc[n]], [gg[n]]), n) for n in names)
+    glob, tower, lowest = _grad_cosines(grads)
     dloss = abs(loss["card"] - loss["cpu"])
     print(f"train grad check ViT-L/14 B=8: loss card {loss['card']} cpu {loss['cpu']} (diff {dloss}); "
           f"gradient cosine global {glob} vision {tower['vision.']} text {tower['text.']} "
-          f"(bound {GRAD_MIN_COS}); lowest per-tensor {per[:3]}; launches {counts}")
+          f"(bound {GRAD_MIN_COS}); lowest per-tensor {lowest}; launches {counts}")
     check(all(math.isfinite(x) for x in loss.values()), f"train step losses: {loss}")
     check(glob >= GRAD_MIN_COS, f"global gradient cosine {glob} < {GRAD_MIN_COS}")
     return {"loss_card": loss["card"], "loss_cpu": loss["cpu"], "cos_global": glob,
-            "cos_vision": tower["vision."], "cos_text": tower["text."], "cos_min_tensor": per[0],
+            "cos_vision": tower["vision."], "cos_text": tower["text."], "cos_min_tensor": lowest[0],
             "routes": routes}
 
 
@@ -2480,67 +2631,103 @@ class _Records(logging.Handler):
         self.records.append(record)
 
 
+def _captioned_photos(data: str, n: int = 64):
+    """n BMP photos (a coloured square on another colour, sizes 64-400 px)
+    with caption sidecars, the fine-tune CLI's layout."""
+    import numpy as np
+
+    from image_search_tpu_torch.ingest.decode import write_bmp24
+
+    os.makedirs(data)
+    rng = np.random.default_rng(4)
+    colours = ["red", "green", "blue", "yellow", "white", "black", "purple", "orange"]
+    for i in range(n):
+        h, w = (int(x) for x in rng.integers(64, 400, 2))
+        img = np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
+        img[h // 4 : 3 * h // 4, w // 4 : 3 * w // 4] = rng.integers(0, 256, 3)
+        write_bmp24(os.path.join(data, f"photo_{i:02d}.bmp"), img)
+        with open(os.path.join(data, f"photo_{i:02d}.txt"), "w") as f:
+            f.write(f"photo {i}: a {colours[i % 8]} square on {colours[(i // 8) % 8]}")
+
+
+def _random_checkpoint(torch, dev, cfg, path: str, seed: int, what: str):
+    """The reference's checkpoint file of seeded random f32 weights made on
+    the card."""
+    from image_search_tpu_torch.models.convert import build_model, init_params, params_to_jax, save_checkpoint
+
+    model = build_model(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev, torch.float32),
+                        dev, torch.float32)
+    t0 = time.perf_counter()
+    save_checkpoint(path, params_to_jax(model), cfg)
+    print(f"{what}: wrote a random checkpoint ({os.path.getsize(path) / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _finetune_cli(torch, argv):
+    """``train.finetune.main(argv)`` with its log captured at DEBUG level ->
+    dict(steps [(step, ms, loss)], evals {tag: metrics}, wall s, counts,
+    counts per head dim, peak bytes, bytes held before the run)."""
+    from image_search_tpu_torch.train import finetune
+
+    logger = logging.getLogger(finetune.__name__)
+    rec = _Records()
+    logger.addHandler(rec)
+    level = logger.level
+    logger.setLevel(logging.DEBUG)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        _reset_counts()
+        t0 = time.perf_counter()
+        finetune.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = dict(wall=wall, counts=_read_counts(), by_hd=_read_counts_by_hd(),
+                   peak=torch.cuda.max_memory_allocated(), live=live)
+    finally:
+        logger.removeHandler(rec)
+        logger.setLevel(level)
+    out["steps"] = [r.args for r in rec.records if r.levelno == logging.DEBUG and r.msg.startswith("step ")]
+    out["evals"] = {r.args[0]: r.args[2] for r in rec.records if r.msg.startswith("retrieval ")}
+    return out
+
+
+def _weights_moved(got, want, where) -> list:
+    """For each (tower, group, name) in ``where``: the output checkpoint's
+    array is finite and differs from the input's."""
+    import numpy as np
+
+    pick = lambda tree, path: tree[path[0]] if len(path) == 1 else pick(tree[path[0]], path[1:])
+    return [bool(np.isfinite(pick(got, w)).all()) and not np.array_equal(pick(got, w), pick(want, w)) for w in where]
+
+
 def phase_finetune(torch, dev, smi):
     """``train.finetune.main`` on the card, without and with --remat."""
     import numpy as np
 
     from image_search_tpu_torch.config import get_config
-    from image_search_tpu_torch.ingest.decode import write_bmp24
-    from image_search_tpu_torch.models.convert import (
-        build_model, init_params, load_checkpoint, params_to_jax, save_checkpoint,
-    )
-    from image_search_tpu_torch.train import finetune
+    from image_search_tpu_torch.models.convert import load_checkpoint
 
     cfg = get_config("clip-vit-large-patch14")
     L = cfg.vision.num_layers + cfg.text.num_layers
     res = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as tmp:
         weights = os.path.join(tmp, "in.safetensors")
-        model = build_model(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev, torch.float32),
-                            dev, torch.float32)
-        t0 = time.perf_counter()
-        save_checkpoint(weights, params_to_jax(model), cfg)
-        print(f"finetune: wrote a random ViT-L/14 checkpoint in {time.perf_counter() - t0:.1f} s")
-        del model
-        torch.cuda.empty_cache()
+        _random_checkpoint(torch, dev, cfg, weights, 3, "finetune ViT-L/14")
         data = os.path.join(tmp, "photos")
-        os.makedirs(data)
-        rng = np.random.default_rng(4)
-        colours = ["red", "green", "blue", "yellow", "white", "black", "purple", "orange"]
-        for i in range(64):
-            h, w = (int(x) for x in rng.integers(64, 400, 2))
-            img = np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
-            img[h // 4 : 3 * h // 4, w // 4 : 3 * w // 4] = rng.integers(0, 256, 3)
-            write_bmp24(os.path.join(data, f"photo_{i:02d}.bmp"), img)
-            with open(os.path.join(data, f"photo_{i:02d}.txt"), "w") as f:
-                f.write(f"photo {i}: a {colours[i % 8]} square on {colours[(i // 8) % 8]}")
+        _captioned_photos(data)
         want_in, _ = load_checkpoint(weights)
-        logger = logging.getLogger(finetune.__name__)
         for remat in (False, True):
             tag = "remat" if remat else "plain"
             out = os.path.join(tmp, f"out_{tag}.safetensors")
             argv = ["--data-dir", data, "--weights", weights, "--out", out, "--batch-size", str(TRAIN_BATCH),
                     "--steps", str(TRAIN_STEPS), "--eval-dir", data, "--checkpoint-dir", os.path.join(tmp, f"ck_{tag}"),
                     "--device", str(dev)] + (["--remat"] if remat else [])
-            rec = _Records()
-            logger.addHandler(rec)
-            level = logger.level
-            logger.setLevel(logging.DEBUG)
-            try:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                _reset_counts()
-                t0 = time.perf_counter()
-                finetune.main(argv)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                counts = _read_counts()
-                peak = torch.cuda.max_memory_allocated()
-            finally:
-                logger.removeHandler(rec)
-                logger.setLevel(level)
-            steps = [r.args for r in rec.records if r.levelno == logging.DEBUG and r.msg.startswith("step ")]
-            evals = {r.args[0]: r.args[2] for r in rec.records if r.msg.startswith("retrieval ")}
+            run = _finetune_cli(torch, argv)
+            steps, evals, counts, peak, wall = run["steps"], run["evals"], run["counts"], run["peak"], run["wall"]
             losses = [a[2] for a in steps]
             step_ms = [a[1] for a in steps]
             check(len(steps) == TRAIN_STEPS, f"finetune {tag}: {len(steps)} steps logged, want {TRAIN_STEPS}")
@@ -2548,11 +2735,8 @@ def phase_finetune(torch, dev, smi):
             check(set(evals) == {"BEFORE", "AFTER"}, f"finetune {tag}: evaluations {sorted(evals)}")
             got, got_cfg = load_checkpoint(out)
             check(got_cfg == cfg, f"finetune {tag}: output config differs")
-            moved = [np.isfinite(a).all() and not np.array_equal(a, b) for a, b in (
-                (got["vision"]["blocks"]["qkv_w"], want_in["vision"]["blocks"]["qkv_w"]),
-                (got["text"]["blocks"]["fc_w"], want_in["text"]["blocks"]["fc_w"]),
-                (got["logit_scale"], want_in["logit_scale"]),
-            )]
+            moved = _weights_moved(got, want_in, (("vision", "blocks", "qkv_w"), ("text", "blocks", "fc_w"),
+                                                  ("logit_scale",)))
             check(all(moved), f"finetune {tag}: output weights unchanged or not finite: {moved}")
             per_fwd = 2 * L if remat else L - 2  # the recompute runs B1 again
             eval_b1 = 2 * (L - 2)  # BEFORE and AFTER: one image and one text batch each
@@ -2570,6 +2754,258 @@ def phase_finetune(torch, dev, smi):
                   f"{evals['AFTER']['recall@1_i2t']}; launches {counts} (B1 {TRAIN_STEPS} x {per_fwd} + eval "
                   f"{eval_b1}, B5 {TRAIN_STEPS} x {want_b5 // TRAIN_STEPS}); CLI wall {wall:.1f} s  [{smi}]")
             torch.cuda.empty_cache()
+    return res
+
+
+# the ladder's full-depth fine-tune on the card: the loss of step 1 overshoots
+# the first, as in ViT-L/14's CLI run, and the last must fall below it
+LADDER_TRAIN_BATCH, LADDER_TRAIN_STEPS = 16, 6
+
+
+def _b5_per_step(cfg, remat: bool):
+    """B5's launches per train step by head dim: every layer's attention core
+    but each tower's CLS/EOS-only last one, every layer under remat (its
+    recompute runs the kernel in the last layer too)."""
+    per = {}
+    for tower in (cfg.vision, cfg.text):
+        hd = tower.hidden_size // tower.num_heads
+        per[hd] = per.get(hd, 0) + tower.num_layers - (0 if remat else 1)
+    return per
+
+
+def ladder_train_grad(torch, dev, name: str):
+    """One train step of a ladder preset at full width and depth 2 on the card
+    (f32 master weights, bf16 compute) against the same step in f32 on the
+    CPU, same weights and batch: the global gradient cosine, and B5 launched
+    at the vision tower's head dim and the text tower's."""
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.convert import init_params
+
+    cfg = _ladder_depth2(get_config(name))
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(11), dev, torch.float32)
+    ids, pixels = _train_batch(torch, cfg, 8, seed=12)
+    loss, grads, _, by_hd = _step_against_cpu(torch, dev, cfg, state, ids, pixels, f"ladder train grad {name} depth 2")
+    del state
+    want = _b5_per_step(cfg, False)
+    check(by_hd.get("fused_attention_bwd") == want, f"{name} depth-2 step: B5 per head dim {by_hd}, want {want}")
+    glob, tower, lowest = _grad_cosines(grads)
+    print(f"ladder train grad {name} at full width and depth 2, B=8: loss card {loss['card']} cpu {loss['cpu']}; "
+          f"gradient cosine global {glob} vision {tower['vision.']} text {tower['text.']} (bound {GRAD_MIN_COS}); "
+          f"lowest per-tensor {lowest}; launches per head dim {by_hd}")
+    check(all(math.isfinite(x) for x in loss.values()), f"{name} depth-2 train step losses: {loss}")
+    check(glob >= GRAD_MIN_COS, f"{name} depth 2: global gradient cosine {glob} < {GRAD_MIN_COS}")
+    return {"loss_card": loss["card"], "loss_cpu": loss["cpu"], "cos_global": glob, "cos_vision": tower["vision."],
+            "cos_text": tower["text."], "cos_min_tensor": lowest[0], "launches_by_hd": by_hd}
+
+
+def _step_summary(name, tag, step_ms, losses, peak, live, by_hd, want_hd, batch, smi, how):
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"{name} {tag}: losses {losses}")
+    check(by_hd.get("fused_attention_bwd") == want_hd,
+          f"{name} {tag}: B5 launches per head dim {by_hd.get('fused_attention_bwd')}, want {want_hd}")
+    ms = statistics.median(step_ms[1:])
+    print(f"ladder train {name} {tag} ({how}): B={batch} {len(losses)} steps: {ms} ms/step (median of steps 1-"
+          f"{len(losses) - 1}; step 0 {step_ms[0]} ms) = {batch / (ms * 1e-3)} pairs/s; peak {peak / 2**30:.2f} GiB "
+          f"({live / 2**30:.2f} GiB of it held before the run); losses {losses}; launches per head dim {by_hd}  [{smi}]")
+    return dict(ms_per_step=ms, first_step_ms=step_ms[0], pairs_per_s=batch / (ms * 1e-3), peak_bytes=peak,
+                live_bytes=live, losses=losses, launches_by_hd=by_hd, how=how)
+
+
+def ladder_train_steps(torch, dev, name: str, smi):
+    """LADDER_TRAIN_STEPS train steps of a ladder preset at full width and
+    depth on the card, without and with remat, from seeded random f32 master
+    weights made on the card, through make_train_step on the weights in
+    memory (bigG's checkpoint would be a 10 GB file): one batch of
+    LADDER_TRAIN_BATCH random photos repeated, so the loss must fall;
+    ms/step, pairs/s, peak memory, B5's launches per head dim."""
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.train.contrastive import adamw, make_train_step
+
+    cfg = get_config(name)
+    ids, pixels = (t.to(dev) for t in _train_batch(torch, cfg, LADDER_TRAIN_BATCH, seed=13))
+    res = {}
+    for remat in (False, True):
+        tag = "remat" if remat else "plain"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        init_fn, step_fn = make_train_step(cfg, adamw(1e-5), torch.bfloat16, remat, dev,
+                                           remat_policy="dots_with_no_batch_dims_saveable" if remat else "")
+        st = init_fn(build_model(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(14), dev,
+                                                  torch.float32), dev, torch.float32, trainable=True))
+        w0 = st.model.vision.blocks[0].qkv.weight.detach().clone()
+        _reset_counts()
+        losses, step_ms = [], []
+        for _ in range(LADDER_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            st, m = step_fn(st, ids, pixels)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        by_hd = _read_counts_by_hd()
+        moved = not torch.equal(w0, st.model.vision.blocks[0].qkv.weight.detach())
+        check(moved and bool(torch.isfinite(st.model.vision.blocks[0].qkv.weight).all()),
+              f"{name} {tag}: the first vision block's qkv weights did not move or are not finite")
+        want = {k: v * LADDER_TRAIN_STEPS for k, v in _b5_per_step(cfg, remat).items()}
+        res[tag] = _step_summary(name, tag, step_ms, losses, torch.cuda.max_memory_allocated(), live, by_hd, want,
+                                 LADDER_TRAIN_BATCH, smi, "make_train_step on weights in memory")
+        del st, init_fn, step_fn, w0
+        torch.cuda.empty_cache()
+    return res
+
+
+def ladder_finetune_cli(torch, dev, name: str, smi):
+    """``train.finetune.main`` on a ladder preset (H/14: a 3.7 GiB random
+    checkpoint) on 64 captioned BMP photos, LADDER_TRAIN_STEPS steps of
+    LADDER_TRAIN_BATCH, without and with --remat: finite and falling losses,
+    output weights that moved, B5's launches per head dim; ms/step, pairs/s,
+    peak memory."""
+    from image_search_tpu_torch.config import get_config
+    from image_search_tpu_torch.models.convert import load_checkpoint
+
+    cfg = get_config(name)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_ft_") as tmp:
+        weights = os.path.join(tmp, "in.safetensors")
+        _random_checkpoint(torch, dev, cfg, weights, 15, f"ladder finetune {name}")
+        data = os.path.join(tmp, "photos")
+        _captioned_photos(data)
+        want_in, _ = load_checkpoint(weights)
+        for remat in (False, True):
+            tag = "remat" if remat else "plain"
+            out = os.path.join(tmp, f"out_{tag}.safetensors")
+            argv = ["--data-dir", data, "--weights", weights, "--out", out, "--batch-size", str(LADDER_TRAIN_BATCH),
+                    "--steps", str(LADDER_TRAIN_STEPS), "--device", str(dev)] + (["--remat"] if remat else [])
+            run = _finetune_cli(torch, argv)
+            steps = run["steps"]
+            check(len(steps) == LADDER_TRAIN_STEPS, f"{name} finetune {tag}: {len(steps)} steps logged")
+            got, got_cfg = load_checkpoint(out)
+            check(got_cfg == cfg, f"{name} finetune {tag}: output config differs")
+            moved = _weights_moved(got, want_in, (("vision", "blocks", "qkv_w"), ("text", "blocks", "fc_w")))
+            check(all(moved), f"{name} finetune {tag}: output weights unchanged or not finite: {moved}")
+            del got
+            want = {k: v * LADDER_TRAIN_STEPS for k, v in _b5_per_step(cfg, remat).items()}
+            res[tag] = _step_summary(name, tag, [a[1] for a in steps], [a[2] for a in steps], run["peak"], run["live"],
+                                     run["by_hd"], want, LADDER_TRAIN_BATCH, smi,
+                                     f"finetune.main, CLI wall {run['wall']:.1f} s")
+            torch.cuda.empty_cache()
+        del want_in
+    return res
+
+
+def phase_train_ladder(torch, dev, smi):
+    """Fine-tuning the OpenCLIP ladder on the card: for each preset a
+    depth-2 train step against f32 on the CPU, then full-depth steps without
+    and with remat (H/14 through the fine-tune CLI, bigG through
+    make_train_step on its weights in memory), B5 at Hd 80 (H/14) and 104
+    (bigG) in every vision layer the step differentiates, at 64 in the text
+    tower's."""
+    res = {"grad": {}, "steps": {}}
+    for name in LADDER:
+        res["grad"][name] = ladder_train_grad(torch, dev, name)
+    res["steps"]["openclip-vit-H-14"] = ladder_finetune_cli(torch, dev, "openclip-vit-H-14", smi)
+    res["steps"]["openclip-vit-bigG-14"] = ladder_train_steps(torch, dev, "openclip-vit-bigG-14", smi)
+    return res
+
+
+GATE_SEEDS = (0, 1, 2)
+
+
+def gate_routes(torch, dev, smi):
+    """The learned-retrieval example's towers (Hd 32, seeded random bf16
+    weights) on 48 random 64 px photos and 48 captions under the packed
+    route (B1p) and the fully fused blocks (B9 + B7 + B9), launches counted
+    per head dim, outputs against the default route's."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(REPO, "examples_torch"))
+    import learned_retrieval as gate
+
+    from image_search_tpu_torch.models.block_fused import COMPOSITIONS, blocks_as
+    from image_search_tpu_torch.models.clip import encode_image, encode_text
+    from image_search_tpu_torch.models.convert import build_model, init_params
+    from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
+    from image_search_tpu_torch.tokenizer import train_bpe
+
+    F = torch.nn.functional
+    caps = [t.format(c=c, pos="upper left", sz="small", th="thin") for ts in gate.TRAIN_TEMPLATES.values() for t in ts
+            for c in gate.COLORS]
+    tok = train_bpe(caps, vocab_size=800, context_length=16)
+    cfg = gate.demo_config(tok)
+    model = build_model(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(16), dev, torch.bfloat16), dev,
+                        torch.bfloat16)
+    rng = np.random.default_rng(17)
+    u8, A_h, A_w = (torch.from_numpy(a).to(dev) for a in pack_batch(
+        [rng.integers(0, 256, (64, 64, 3), dtype=np.uint8) for _ in range(48)], size=cfg.vision.image_size))
+    ids = torch.from_numpy(tok(caps[:48]).astype(np.int64)).to(dev)
+    vision = lambda: encode_image(model, fused_preprocess(u8, A_h, A_w, out_dtype=torch.bfloat16))
+    text = lambda: encode_text(model, ids)
+    res = {}
+    with torch.inference_mode():
+        img0, txt0 = vision(), text()
+        for route, ctx, entry in (("packed", lambda: switches({"ISX_ATTN_PIPE": "0"}), "fused_attention_packed"),
+                                  ("fully fused", lambda: blocks_as(COMPOSITIONS["fully fused"]),
+                                   "fused_attention_qkv_packed")):
+            with ctx():
+                _reset_counts()
+                img, txt = vision(), text()
+                torch.cuda.synchronize()
+                by_hd = _read_counts_by_hd()
+            want = {entry: {32: cfg.vision.num_layers + cfg.text.num_layers - 2}}  # both towers, last blocks aside
+            check(by_hd == want, f"gate towers, {route} route: launches per head dim {by_hd}, want {want}")
+            cos = min(F.cosine_similarity(a.float(), b.float(), dim=-1).min().item()
+                      for a, b in ((img, img0), (txt, txt0)))
+            check(cos >= TOWER_MIN_COS, f"gate towers, {route} route: cosine {cos} to the default route's")
+            res[route] = {"launches_by_hd": by_hd, "cos_to_default": cos}
+    print(f"gate towers (Hd 32) under the other routes: {res}  [{smi}]")
+    del model
+    return res
+
+
+def phase_learned_retrieval(torch, dev, smi):
+    """The port's learned-retrieval gate (examples_torch/learned_retrieval.py)
+    on the card: the full recipe on seeds 0, 1 and 2 must pass (bidirectional
+    R@1 >= 0.6, served p@5 >= 0.8, every query hit), a run with lr = 0 must
+    fail; B1 and B5 launched at Hd 32 and at no other head dim."""
+    sys.path.insert(0, os.path.join(REPO, "examples_torch"))
+    import learned_retrieval as gate
+
+    res = {"seeds": {}}
+    b1 = b5 = 0
+    for seed, lr in [(s, 5e-4) for s in GATE_SEEDS] + [(0, 0.0)]:
+        tag = f"seed {seed}" if lr else "lr 0"
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+            _reset_counts()
+            t0 = time.perf_counter()
+            m = gate.run(steps=800 if lr else 50, seed=seed, learning_rate=lr, device=str(dev), root=tmp,
+                         log=lambda msg: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by_hd = _read_counts_by_hd()
+        hds = {hd for v in by_hd.values() for hd in v}
+        check(hds == {32} and by_hd.get("fused_attention", {}).get(32, 0) > 0
+              and by_hd.get("fused_attention_bwd", {}).get(32, 0) > 0,
+              f"gate {tag}: launches per head dim {by_hd}, want B1 and B5 at 32 only")
+        passed = gate.passes_gate(m)
+        print(f"gate {tag}: R@1 {m['before']['recall@1_i2t']:.3f}/{m['before']['recall@1_t2i']:.3f} -> bidirectional "
+              f"{m['r1']:.3f}; served p@5 {m['served_precision_at_5']:.3f} ({m['served_queries_hit']}/"
+              f"{m['served_n_queries']} queries hit); direct p@5 {m['direct_precision_at_5']:.3f}; "
+              f"{m['steps_run']} steps, best segment {m['best_segment']}; loss {m['losses'][0]:.3f} -> "
+              f"{m['losses'][1]:.3f}; {wall:.1f} s; launches per head dim {by_hd}; gate "
+              f"{'PASSED' if passed else 'FAILED'}  [{smi}]")
+        if lr:
+            check(passed, f"gate {tag}: R@1 {m['r1']}, served p@5 {m['served_precision_at_5']}, hits "
+                  f"{m['served_queries_hit']}/{m['served_n_queries']}")
+            b1 += by_hd["fused_attention"][32]
+            b5 += by_hd["fused_attention_bwd"][32]
+        else:
+            check(not passed, f"gate lr 0: the untrained checkpoint passed (R@1 {m['r1']}, p@5 "
+                  f"{m['served_precision_at_5']}): the gate has no teeth")
+        res["seeds"][tag] = {"r1": m["r1"], "served_p5": m["served_precision_at_5"], "hits": m["served_queries_hit"],
+                             "direct_p5": m["direct_precision_at_5"], "steps": m["steps_run"],
+                             "best_segment": m["best_segment"], "wall_s": wall, "launches_by_hd": by_hd}
+    res["b1_launches"], res["b5_launches"] = b1, b5
+    res["routes"] = gate_routes(torch, dev, smi)
     return res
 
 
@@ -2685,6 +3121,31 @@ def ptxas_attention(log_path):
     return sorted(rows, key=lambda r: (r["Hd"], r["norm_p"], r["key_tiles"]))
 
 
+def ptxas_attention_bwd(log_path):
+    """ptxas's registers and spill bytes for each instantiation of B5's two
+    passes: [{Hd, pass, key_tiles (row pass), probe, registers,
+    spill_stores, spill_loads}]."""
+    import re
+
+    rows, cur = [], None
+    for line in open(log_path, errors="replace"):
+        m = re.search(r"Compiling entry function '_ZN8attn_bwd\d+attn_bwd_(rows|cols)_kernelILi(\d+)E(?:Li(\d+)E)?Lb(\d)E",
+                      line)
+        if m:
+            cur = {"Hd": int(m[2]), "pass": m[1], "key_tiles": int(m[3]) if m[3] else None, "probe": m[4] == "1"}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur |= {"spill_stores": int(m[1]), "spill_loads": int(m[2])}
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append(cur | {"registers": int(m[1])})
+            cur = None
+    return sorted(rows, key=lambda r: (r["Hd"], r["pass"], r["probe"], r["key_tiles"] or 0))
+
+
 def _laps():
     """lap(name) prints the seconds since the previous lap (or the first call)."""
     last = [time.perf_counter()]
@@ -2723,6 +3184,36 @@ def ladder_entries(ladder):
             err = max(res[core]["max_abs_err"], res[core].get("ragged_max_abs_err", 0.0),
                       res["split"]["max_abs_err"] if core == "padded" else 0.0)
             rows.append(entry(f"{kernel}_hd{hd}", f"attention_fwd_hd{hd}.cu", replaces, launches, res[core], err))
+    return rows
+
+
+def new_head_dim_entries(bwd, ladder, train_ladder, learned):
+    """The ``kernels`` line's entries of B5 at Hd 32, 80 and 104 and of the
+    forward family at Hd 32. Launches as the wrappers counted them: B5 at 80
+    and 104 in the ladder's full-depth fine-tune (H/14's CLI runs, bigG's
+    steps, with and without remat), B1 and B5 at 32 in the learned-retrieval
+    gate's three seeds, B1p and B7 at 32 in the gate's towers on those routes."""
+    rows = []
+    for hd, name in ((80, "openclip-vit-H-14"), (104, "openclip-vit-bigG-14")):
+        launches = sum(v["launches_by_hd"]["fused_attention_bwd"][hd] for v in train_ladder["steps"][name].values())
+        row = bwd[(hd, 257)]
+        err = max(row["max_abs_err"], bwd[(hd, "ragged")]["max_abs_err"])
+        rows.append(entry(f"fused_attention_bwd_hd{hd}", f"attention_bwd_hd{hd}.cu", "attention.py:122", launches, row,
+                          err))
+    err = max(bwd[(32, 65)]["max_abs_err"], bwd[(32, 16)]["max_abs_err"], bwd[(32, "ragged")]["max_abs_err"])
+    rows.append(entry("fused_attention_bwd_hd32", "attention_bwd_hd32.cu", "attention.py:122", learned["b5_launches"],
+                      bwd[(32, 65)], err))
+    k32, gate_b1 = ladder["kernels"][32], ladder["gate_b1"]
+    err = max(gate_b1[65]["max_abs_err"], gate_b1[16]["max_abs_err"], k32["grouped"]["max_abs_err"],
+              k32["grouped"]["ragged_max_abs_err"])
+    rows.append(entry("fused_attention_hd32", "attention_fwd_hd32.cu", "attention.py:665", learned["b1_launches"],
+                      gate_b1[65], err))
+    for kernel, replaces, core, route in (("fused_attention_packed", "attention.py:29", "packed", "packed"),
+                                          ("fused_attention_qkv_packed", "attention.py:276", "qkv_packed",
+                                           "fully fused")):
+        launches = learned["routes"][route]["launches_by_hd"][kernel][32]
+        err = max(k32[core]["max_abs_err"], k32[core]["ragged_max_abs_err"])
+        rows.append(entry(f"{kernel}_hd32", "attention_fwd_hd32.cu", replaces, launches, k32[core], err))
     return rows
 
 
@@ -2766,6 +3257,10 @@ def main() -> int:
         print(f"ptxas: attention forward Hd={row['Hd']} {'B1p/B6/B7' if row['norm_p'] else 'B1'} "
               f"key tiles={row['key_tiles']}: {row['registers']} registers, spill stores {row['spill_stores']} B, "
               f"spill loads {row['spill_loads']} B")
+    for row in ptxas_attention_bwd(lib_path.parent / "nvcc.log"):
+        what = f"row pass key tiles={row['key_tiles']}" if row["pass"] == "rows" else "column pass"
+        print(f"ptxas: attention backward (B5) Hd={row['Hd']} {what}{' probe' if row['probe'] else ''}: "
+              f"{row['registers']} registers, spill stores {row['spill_stores']} B, spill loads {row['spill_loads']} B")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     lap = _laps()
@@ -2788,6 +3283,10 @@ def main() -> int:
     ft = phase_finetune(torch, dev, smi)
     prof = phase_train_profile(torch, dev)
     lap("training")
+    train_ladder = phase_train_ladder(torch, dev, smi)
+    lap("ladder training")
+    learned = phase_learned_retrieval(torch, dev, smi)
+    lap("learned retrieval")
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "image_search_tpu" or m.startswith("image_search_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -2828,6 +3327,7 @@ def main() -> int:
               towers["fused"]["fully fused"]["launches"]["ln_matmul"], kern[("ln_matmul", 3072)],
               max(kern[("ln_matmul", 3072)]["max_abs_err"], kern[("ln_matmul", 4096)]["max_abs_err"])),
         *ladder_entries(ladder),
+        *new_head_dim_entries(kern["attention_bwd_hd"], ladder, train_ladder, learned),
     ], "img_per_s": towers["img_per_s"],
         "route_img_per_s": {r: v["img_per_s"] for r, v in towers["routes"].items()},
         "fused_block_img_per_s": {r: v["img_per_s"] for r, v in towers["fused"].items()},
@@ -2858,7 +3358,14 @@ def main() -> int:
                           "peak_gib": ladder["server"][name]["peak_gib"]} for name in LADDER}
         | {"bigg_text_b1_ms": ladder["bigg_text"]["ms"],
            "ln_matmul_ms": {f"K{k}_N{n}": v["ms"] for (k, n), v in ladder["ln_matmul"].items()},
-           "int8_scores_ms": {f"D{d}_B{b}": v["ms"] for (d, b), v in ladder["scores"].items()}}}))
+           "int8_scores_ms": {f"D{d}_B{b}": v["ms"] for (d, b), v in ladder["scores"].items()}},
+        "ladder_train": {name: {"grad_cos": train_ladder["grad"][name]["cos_global"],
+                                **{f"{tag}_ms_per_step": v["ms_per_step"] for tag, v in train_ladder["steps"][name].items()},
+                                **{f"{tag}_pairs_per_s": v["pairs_per_s"] for tag, v in train_ladder["steps"][name].items()},
+                                **{f"{tag}_peak_gib": v["peak_bytes"] / 2**30 for tag, v in train_ladder["steps"][name].items()}}
+                         for name in LADDER},
+        "learned_retrieval": {tag: {k: v[k] for k in ("r1", "served_p5", "hits", "steps", "wall_s")}
+                              for tag, v in learned["seeds"].items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

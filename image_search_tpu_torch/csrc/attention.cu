@@ -57,12 +57,13 @@
 //      block's key tiles into one accumulator and the split tail's (keys at
 //      or past s_main, a multiple of 16 there) into another, added in f32;
 //   4. the grouped route's 1/sum, bf16 rounding and a 4-byte store per pair.
-// Head dims: HD is a template parameter (attention_fwd.cuh), built for 64
-// (ViT-L/14, and the text towers of OpenCLIP H/14 and bigG), 80 (H/14's
-// vision tower) and 104 (bigG's vision tower: the contraction padded
-// to 112 with zeros, PV in 13 n-tiles of 8, no store past column 104; see
-// attention_tc.cuh). Each head dim's kernels compile in a source of their
-// own (attention_fwd_hd80.cu, attention_fwd_hd104.cu). At HD = 104 and
+// Head dims: HD is a template parameter (attention_fwd.cuh), built for 32
+// (the learned-retrieval example's towers), 64 (ViT-L/14, and the text
+// towers of OpenCLIP H/14 and bigG), 80 (H/14's vision tower) and 104
+// (bigG's vision tower: the contraction padded to 112 with zeros, PV in 13
+// n-tiles of 8, no store past column 104; see attention_tc.cuh). Each head
+// dim's kernels compile in a source of their own (attention_fwd_hd32.cu,
+// attention_fwd_hd80.cu, attention_fwd_hd104.cu). At HD = 104 and
 // S = 257, K and V take 130.6 KB of shared memory: one CTA an SM.
 //
 // What bounds it: bytes. At the vision shape (B=160 S=257 H=16) the function
@@ -78,6 +79,7 @@
 #include "attention_fwd.cuh"
 
 namespace attn_fwd {
+ISX_ATTN_FWD_HD(extern, 32)
 ISX_ATTN_FWD_HD(extern, 80)
 ISX_ATTN_FWD_HD(extern, 104)
 }  // namespace attn_fwd
@@ -103,6 +105,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return launch_hd<32, NORM_P>(q, k, v, o, B, S, H, q_ld, k_ld, v_ld, o_ld, n_keys, s_main, causal, sm_scale, st);
     case 64:
       return launch_hd<64, NORM_P>(q, k, v, o, B, S, H, q_ld, k_ld, v_ld, o_ld, n_keys, s_main, causal, sm_scale, st);
     case 80:

@@ -1,8 +1,9 @@
 // The attention forward kernel (B1, B1p, B6, B7: attention.cu describes the
 // function and the design), as a template on the head dim. attention.cu
-// builds HD = 64 and dispatches on the head dim; attention_fwd_hd80.cu and
-// attention_fwd_hd104.cu each build one more head dim, so that nvcc compiles
-// the three sets of unrolled kernels in parallel processes.
+// builds HD = 64 and dispatches on the head dim; attention_fwd_hd32.cu,
+// attention_fwd_hd80.cu and attention_fwd_hd104.cu each build one more head
+// dim, so that nvcc compiles the four sets of unrolled kernels in parallel
+// processes.
 #pragma once
 
 #include "attention_tc.cuh"

@@ -16,11 +16,12 @@
 // from the QK^T accumulators into the PV product without leaving registers.
 //
 // Head dims that 16 does not divide (bigG's 104) pad the contraction to
-// kdim(HD) = 112: the q fragments' and the shared K rows' columns HD..111
-// are zeros, which no load reads from device memory (in the packed
-// [B, S, H*HD] layout they are the next head's), so QK^T sums the same
-// products; PV runs HD / 8 output n-tiles (13 at 104, the last one on its
-// own) and never stores a column at or past HD.
+// kdim(HD) = 112: the A and B fragments' and the shared rows' columns
+// HD..111 are zeros, which no load reads from device memory (in the packed
+// [B, S, H*HD] layout they are the next head's), so QK^T (and B5's G V^T)
+// sums the same products; PV (and B5's dq, dk, dv) runs HD / 8 output
+// n-tiles (13 at 104, the last one on its own) and never stores a column at
+// or past HD.
 //
 // Shared-memory rows of K, V, Q or G are padded to kdim(HD) + 8 bf16 (144
 // bytes at HD = 64, 176 at 80, 240 at 104): 16-byte aligned for cp.async and
@@ -154,11 +155,12 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[ksteps(HD)][4], const 
   }
 }
 
-// The A fragments (all k-steps) of rows r0..r0+15 of a shared tile. B8
-// only, built at head dims that 16 divides (its q rows have no zero pad).
+// The A fragments (all k-steps) of rows r0..r0+15 of a shared tile of
+// stride row_ld(HD). A padded last k-step reads the rows' columns
+// HD..kdim(HD)-1, which must hold zeros: stage_rows writes them so (B5's Q
+// and G rows); B8 builds its q rows at head dims that 16 divides only.
 template <int HD>
 __device__ __forceinline__ void ldsm_a_rows(uint32_t (&a)[ksteps(HD)][4], const bf16* s, int r0) {
-  static_assert(HD % 16 == 0, "B8 is built at head dims that 16 divides");
   const int lane = threadIdx.x & 31;
   const bf16* p = s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * row_ld(HD) + (lane >> 4) * 8;
 #pragma unroll
@@ -188,36 +190,36 @@ __device__ __forceinline__ void tile_dot(float (&c0)[4], float (&c1)[4], const u
 
 // The same product with x's fragments already in registers (b[n][ks] for
 // n-tile n, as loaded by load_b_cols): the same instructions in the same
-// order as tile_dot, so the same bits. B5's column pass only, built at head
-// dims that 16 divides.
+// order as tile_dot, so the same bits. B5's column pass.
 template <int HD>
-__device__ __forceinline__ void tile_dot_regs(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[HD / 16][4],
-                                              const uint32_t (&b)[2][HD / 16][2]) {
-  static_assert(HD % 16 == 0, "B5 is built at head dims that 16 divides");
+__device__ __forceinline__ void tile_dot_regs(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[ksteps(HD)][4],
+                                              const uint32_t (&b)[2][ksteps(HD)][2]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) c0[e] = c1[e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
+  for (int ks = 0; ks < ksteps(HD); ++ks) {
     mma_bf16(c0, a[ks], b[0][ks][0], b[0][ks][1]);
     mma_bf16(c1, a[ks], b[1][ks][0], b[1][ks][1]);
   }
 }
 
 // B fragments of rows j0..j0+15 of one head of x as the columns of a . x^T,
-// straight from global memory; rows at or past n_real are zero.
+// straight from global memory; rows at or past n_real are zero, and so are
+// the columns at or past HD of a padded last k-step (never read: in the
+// packed layout they are the next head's), as load_a_rows has them.
 template <int HD>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[2][HD / 16][2], const bf16* __restrict__ x,
+__device__ __forceinline__ void load_b_cols(uint32_t (&b)[2][ksteps(HD)][2], const bf16* __restrict__ x,
                                             long long ld, long long tok0, long long col, int j0, int n_real) {
-  static_assert(HD % 16 == 0, "B5 is built at head dims that 16 divides");
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
     const bool ok = j0 + n * 8 + g < n_real;
     const bf16* xr = x + (tok0 + (ok ? j0 + n * 8 + g : 0)) * ld + col + 2 * t;
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
+    for (int ks = 0; ks < ksteps(HD); ++ks) {
+      const bool hi = ks * 16 + 8 < HD;  // the k-step's upper 8 columns lie in the head
       b[n][ks][0] = ok ? ld32(xr + ks * 16) : 0u;
-      b[n][ks][1] = ok ? ld32(xr + ks * 16 + 8) : 0u;
+      b[n][ks][1] = ok && hi ? ld32(xr + ks * 16 + 8) : 0u;
     }
   }
 }

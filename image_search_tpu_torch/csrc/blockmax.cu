@@ -57,7 +57,7 @@
 // faster than one; six stages, or reducing one 64-row half while the
 // other's wgmmas run, were no faster.
 //
-// Soundness of a cleared bit (dupscan.py::_pair_slack, SLACK = 1e-4): the
+// Soundness of a cleared bit (dupscan.py::_pair_slack: 1e-4 up to D = 768): the
 // products of bf16 values are exact in f32; the tensor cores' f32 accumulation
 // (wgmma's as mma.sync's) may truncate instead of rounding to nearest, which
 // at most doubles the rounding error of the 65-term sum:

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from image_search_tpu_torch.index.index import _gather_1d, _gather_rows
-from image_search_tpu_torch.index.twostage import SLACK, SketchState
+from image_search_tpu_torch.index.twostage import SketchState, slack_for_dim
 from image_search_tpu_torch.ops.blockmax import (
     BLOCK,
     COLS_TILE,
@@ -75,13 +75,14 @@ def _prep_slab(sketch, resid, pen, start: int, size: int):
     return a16, delta.max()
 
 
-def _pair_slack(max_delta: float) -> float:
+def _pair_slack(max_delta: float, dim: int) -> float:
     """Additive UB inflation covering both operands' bf16 rounding plus
     f32 accumulation error: |a_i.a_j - bf16dot(a~_i, a~_j)| <=
     delta_i ||a_j|| + delta_j ||a~_i|| <= 2 * 1.01 * max_delta (augmented
     norms = sqrt(||s||^2 + t^2) = ||r|| <= 1 + 2^-8), and gamma_65
-    accumulation < SLACK."""
-    return 2.0 * 1.01 * float(max_delta) + SLACK
+    accumulation and the sketches' own D-long reductions within
+    ``twostage.slack_for_dim(dim)`` (the reference's SLACK at D <= 768)."""
+    return 2.0 * 1.01 * float(max_delta) + slack_for_dim(dim)
 
 
 def _decode_words(words: np.ndarray, row_block0: int):
@@ -258,7 +259,7 @@ def _prep_sketch(pens, size, sketch: SketchState, rows_per_call: int, granule: i
     max_delta = max(float(torch.stack(deltas).max()), 0.0)
     if sketch.sketches[0].dtype == torch.bfloat16 and sketch.ub_slack is not None:
         max_delta += float(sketch.ub_slack)
-    slack = _pair_slack(max_delta)
+    slack = _pair_slack(max_delta, sketch.basis.shape[0])
     n_pad = -(-start // rows_per_call) * rows_per_call
     s_all = torch.cat(parts_s) if len(parts_s) > 1 else parts_s[0]
     del parts_s

@@ -48,6 +48,23 @@ Here every f32 matmul is full f32 (no TF32,
     require equal counts); a tighter constant is speed work;
   - int8 slabs charge zero: the rescore is kernel B2 itself, on the gathered
     rows, so its scores are the full scan's bit for bit.
+
+``SLACK`` at the row width D. Three f32 reductions of length D enter UB:
+the sketch s_i = W^T r_i (one D-long dot a component), the query's
+q_s = W^T q~, and ||r_i||^2 in t_i (and ||q~||^2 in q_t). For vectors of
+norm about 1 each is within gamma_D ~ D * 2^-23 of its real value in the
+worst case (rounding errors of one sign; random ones give ~sqrt(D) * 2^-24),
+the account the reference gives at D = 768 (gamma_768 ~ 9.2e-5) to size its
+1e-4. That account grows with D: gamma_1024 ~ 1.22e-4 and gamma_1280 ~
+1.53e-4, both over 1e-4. So the inflation follows D (:func:`slack_for_dim`):
+1e-4 * D / 768 above 768 (1.33e-4 at OpenCLIP H/14's 1024, 1.67e-4 at
+bigG's 1280), the same margin over gamma_D at every width, and the
+reference's 1e-4 at 768 and below, so ViT-L/14's answers (and every
+narrower test's) stay the JAX package's bit for bit. A larger inflation only
+admits more candidates or fails more certificates (a full-scan fallback):
+never a wrong answer. The duplicate scan (``index/dupscan.py``) bounds
+row-row dots from the same sketches, so its pair slack follows D the same
+way; its own 65-term accumulation on the tensor cores stays within 2e-5.
 """
 
 from __future__ import annotations
@@ -61,7 +78,8 @@ from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queri
 from image_search_tpu_torch.ops.topk import exact_topk, stable_topk
 
 NEG_INF = float(torch.finfo(torch.float32).min)
-SLACK = 1e-4   # UB inflation: bounds f32 reduction error of either route
+SLACK = 1e-4   # UB inflation at D <= SLACK_DIM: bounds f32 reduction error of either route
+SLACK_DIM = 768  # the row width the reference sized SLACK for (gamma_768 ~ 9.2e-5)
 SLACK_T = 1e-5  # residual-norm-squared inflation before the sqrt
 DEFAULT_SKETCH_DIM = 64
 DEFAULT_CANDIDATES = 4096
@@ -76,6 +94,12 @@ FULL_SCAN_SLACK = {
     "bfloat16": (2.0 ** -8) * (1.0 + 2.0 ** -8) + 5e-4,
     "float32": (2.0 ** -8) * (2.0 + 2.0 ** -8) + 5e-4,
 }
+
+
+def slack_for_dim(dim: int) -> float:
+    """UB inflation for rows of width ``dim``: ``SLACK`` up to SLACK_DIM,
+    then in proportion to D (the module doc's error argument)."""
+    return SLACK * max(int(dim), SLACK_DIM) / SLACK_DIM
 
 
 def estimate_certifiable_fraction(
@@ -120,7 +144,7 @@ def estimate_certifiable_fraction(
     qi = np.unique(np.linspace(0, n - 1, min(n_queries, n)).astype(np.int64))
     q, qs, q_res = x[qi], s[qi], t[qi]
     exact = q @ x.T                                       # [nq, n]
-    infl = np.sqrt((qs * qs).sum(1)) * ub_slack + SLACK   # [nq]
+    infl = np.sqrt((qs * qs).sum(1)) * ub_slack + slack_for_dim(x.shape[1])   # [nq]
     ub = qs @ s.T + q_res[:, None] * t[None, :] + infl[:, None]
     # leave-self-out: a text query is not a corpus row, and self's 1.0
     # score would make every flat corpus look certifiable
@@ -247,7 +271,7 @@ def _query_bound_terms(qt_vec, basis, ub_slack):
     q_s = qt_vec @ basis
     qs2 = (q_s * q_s).sum(dim=1)
     q_res = torch.sqrt(torch.clamp((qt_vec * qt_vec).sum(dim=1) - qs2, min=0.0) + SLACK_T)
-    return q_s, q_res, torch.sqrt(qs2) * ub_slack + SLACK
+    return q_s, q_res, torch.sqrt(qs2) * ub_slack + slack_for_dim(qt_vec.shape[1])
 
 
 def _upper_bounds(q_s, q_res, infl, sk, resid, pen, start: int, size: int):

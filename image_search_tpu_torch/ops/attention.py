@@ -60,8 +60,10 @@ from image_search_tpu_torch import _build
 NEG_INF = torch.finfo(torch.float32).min
 # the head dims each kernel is built at (csrc/attention.cu's dispatch,
 # attention_bwd.cu, qkv_attention.cu's kHd); a CUDA tensor at any other raises
-FWD_HEAD_DIMS = (64, 80, 104)  # B1, B1p, B6, B7: ViT-L/14; OpenCLIP H/14 and bigG vision
-BWD_HEAD_DIMS = (64,)  # B5
+# 32: the learned-retrieval example's towers; 64: ViT-L/14 and every text
+# tower; 80 and 104: OpenCLIP H/14's and bigG's vision towers
+FWD_HEAD_DIMS = (32, 64, 80, 104)  # B1, B1p, B6, B7
+BWD_HEAD_DIMS = (32, 64, 80, 104)  # B5
 QKV_HEAD_DIMS = (64,)  # B8
 MAX_KEYS = 320  # csrc/attention_tc.cuh: kMaxKeyTiles = 20 key tiles of 16 held in registers
 _TAIL = 8  # the split kernels' tail block: Sp = s_main + 8
@@ -385,11 +387,12 @@ def fused_attention_bwd(q, k, v, g, heads: int, causal: bool = False, sm_scale: 
         int(causal), float(sm_scale), _build.stream_handle(q.device),
     )
     _build.check(rc, "attention backward kernel launch")
-    fused_attention_bwd.launches += 1
+    _count(fused_attention_bwd, Hd)
     return dq, dk, dv
 
 
 fused_attention_bwd.launches = 0
+fused_attention_bwd.launches_by_hd = {}
 
 
 class AttentionCore(torch.autograd.Function):

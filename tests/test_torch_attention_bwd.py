@@ -34,7 +34,12 @@ def _inputs(seed, B, S, D):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("B,S,H,Hd", [(2, 13, 4, 8), (2, 17, 2, 16), (1, 33, 2, 24)])
+@pytest.mark.parametrize(
+    "B,S,H,Hd",
+    # the last three: the head dims B5 is built at beside 64 (the
+    # learned-retrieval example's 32, OpenCLIP H/14's 80, bigG's 104)
+    [(2, 13, 4, 8), (2, 17, 2, 16), (1, 33, 2, 24), (2, 17, 2, 32), (1, 13, 2, 80), (1, 17, 2, 104)],
+)
 def test_plain_matches_pallas_backward_and_oracle_vjp(B, S, H, Hd, causal):
     D = H * Hd
     q, k, v, g = _inputs(B * 1000 + S * 10 + Hd, B, S, D)

@@ -173,8 +173,74 @@ def test_launches_per_head_dim_are_read_and_reset(monkeypatch):
     attention._count(attention.fused_attention, 80)
     attention._count(attention.fused_attention, 64)
     attention._count(attention.fused_attention_qkv_packed, 104)
-    assert mod._read_counts_by_hd() == {"fused_attention": {80: 2, 64: 1}, "fused_attention_qkv_packed": {104: 1}}
+    attention._count(attention.fused_attention_bwd, 32)
+    assert mod._read_counts_by_hd() == {"fused_attention": {80: 2, 64: 1}, "fused_attention_qkv_packed": {104: 1},
+                                        "fused_attention_bwd": {32: 1}}
     assert mod._read_counts()["fused_attention"] == 3
     mod._reset_counts()
     assert mod._read_counts_by_hd() == {}
     assert mod._read_counts()["fused_attention"] == 0
+
+
+def test_kernels_line_lists_the_new_head_dims():
+    """``new_head_dim_entries``: B5 at Hd 80 and 104 with the ladder
+    fine-tune's launches at that head dim, B5 and B1 at 32 with the
+    learned-retrieval gate's, B1p and B7 at 32 with the gate's towers on
+    those routes; each names its own source and the Pallas body it
+    replaces."""
+    mod = _load()
+    row = lambda err: dict(max_abs_err=err, ms=1.0, plain_ms=2.0, bound_ms=0.1, bound_by="bytes", library_ms=0.5,
+                           shape="s", ragged_max_abs_err=err / 2)
+    bwd = {(80, 257): row(0.1), (104, 257): row(0.2), (32, 65): row(0.3), (32, 16): row(0.4)}
+    bwd |= {(hd, "ragged"): {"max_abs_err": 0.05} for hd in (32, 80, 104)}
+    ladder = {"kernels": {32: {"packed": row(0.01), "qkv_packed": row(0.02), "grouped": row(0.03)}},
+              "gate_b1": {65: row(0.04), 16: row(0.05)}}
+    steps = lambda hd: {tag: {"launches_by_hd": {"fused_attention_bwd": {hd: n, 64: 7}}}
+                        for tag, n in (("plain", 10), ("remat", 20))}
+    train = {"steps": {"openclip-vit-H-14": steps(80), "openclip-vit-bigG-14": steps(104)}}
+    learned = {"b1_launches": 5, "b5_launches": 4,
+               "routes": {"packed": {"launches_by_hd": {"fused_attention_packed": {32: 3}}},
+                          "fully fused": {"launches_by_hd": {"fused_attention_qkv_packed": {32: 2}}}}}
+    rows = mod.new_head_dim_entries(bwd, ladder, train, learned)
+    got = {r["name"]: (r["launches"], r["max_abs_err"], os.path.basename(r["source"]), r["replaces"]) for r in rows}
+    assert got == {
+        "fused_attention_bwd_hd80": (30, 0.1, "attention_bwd_hd80.cu", "image_search_tpu/ops/attention.py:122"),
+        "fused_attention_bwd_hd104": (30, 0.2, "attention_bwd_hd104.cu", "image_search_tpu/ops/attention.py:122"),
+        "fused_attention_bwd_hd32": (4, 0.4, "attention_bwd_hd32.cu", "image_search_tpu/ops/attention.py:122"),
+        "fused_attention_hd32": (5, 0.05, "attention_fwd_hd32.cu", "image_search_tpu/ops/attention.py:665"),
+        "fused_attention_packed_hd32": (3, 0.01, "attention_fwd_hd32.cu", "image_search_tpu/ops/attention.py:29"),
+        "fused_attention_qkv_packed_hd32": (2, 0.02, "attention_fwd_hd32.cu", "image_search_tpu/ops/attention.py:276"),
+    }
+    bodies = {"122": "_attn_bwd_kernel", "665": "_attn_kernel_grouped", "29": "_attn_kernel", "276": "_attn_kernel_packed"}
+    for r in rows:
+        assert os.path.exists(os.path.join(REPO, r["source"])), r["source"]
+        path, line = r["replaces"].split(":")
+        with open(os.path.join(REPO, path)) as f:
+            assert f.read().splitlines()[int(line) - 1].startswith(f"def {bodies[line]}("), r["name"]
+        assert set(r) >= {"route", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+
+
+def test_b5_launches_per_train_step_follow_the_towers():
+    """B5 runs once in every layer's attention core but each tower's
+    CLS/EOS-only last one, and in every layer under remat: by head dim, the
+    vision tower's and the text tower's (bigG: 48 layers at 104, 32 at 64)."""
+    from image_search_tpu_torch.config import get_config
+
+    mod = _load()
+    assert mod._b5_per_step(get_config("openclip-vit-bigG-14"), False) == {104: 47, 64: 31}
+    assert mod._b5_per_step(get_config("openclip-vit-bigG-14"), True) == {104: 48, 64: 32}
+    assert mod._b5_per_step(get_config("openclip-vit-H-14"), False) == {80: 31, 64: 23}
+    assert mod._b5_per_step(get_config("clip-vit-large-patch14"), False) == {64: 23 + 11}
+
+
+def test_ladder_training_and_the_gate_run_after_the_training_phases():
+    import ast
+
+    with open(SCRIPT) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    phases = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and getattr(n.func, "id", "").startswith("phase_")]
+    assert phases[-3:] == ["phase_train_profile", "phase_train_ladder", "phase_learned_retrieval"]
+    mod = _load()
+    assert mod.GATE_SEEDS == (0, 1, 2) and mod.LADDER_TRAIN_STEPS >= 3

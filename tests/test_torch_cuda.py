@@ -39,9 +39,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
-# the forward family's head dims: ViT-L/14 (and every text tower), OpenCLIP
-# H/14's vision tower, bigG's (the contraction padded to 112)
-HEAD_DIMS = [64, 80, 104]
+# the head dims the attention kernels (B1, B1p, B5, B6, B7) are built at: the
+# learned-retrieval example's towers, ViT-L/14 (and every text tower),
+# OpenCLIP H/14's vision tower, bigG's (the contraction padded to 112)
+HEAD_DIMS = [32, 64, 80, 104]
 
 
 def _seed(base: int, Hd: int) -> int:
@@ -165,18 +166,20 @@ def test_packed_and_split_kernels_reject_what_they_cannot_take(dev):
         attn.fused_attention_split_padded(z(300), z(300), z(300), 2, 257)  # Sp must be 264
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize(
     "B,S,H,causal",
     [(64, 257, 16, False), (64, 77, 12, True), (1, 1, 2, True), (2, 300, 4, False), (3, 33, 2, True), (2, 200, 4, True)],
 )
-def test_attention_bwd_kernel_matches_plain(dev, B, S, H, causal):
+def test_attention_bwd_kernel_matches_plain(dev, B, S, H, causal, Hd):
     """B5 at the train step's shapes (vision and text at batch 64) and odd
-    ones: within 2e-2 x max|plain| of the bf16 plain version, and per (batch,
-    head) cosine >= 0.999 against the f32 plain version."""
-    g = torch.Generator(device=dev).manual_seed(B * S + 1)
-    D = H * 64
+    ones, at every head dim it is built at: within 2e-2 x max|plain| of the
+    bf16 plain version, and per (batch, head) cosine >= 0.999 against the f32
+    plain version."""
+    g = torch.Generator(device=dev).manual_seed(_seed(B * S + 1, Hd))
+    D = H * Hd
     qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).bfloat16()
-    q = qkv[..., :D] * 0.125
+    q = qkv[..., :D] * Hd**-0.5
     k, v = qkv[..., D : 2 * D], qkv[..., 2 * D :]
     go = torch.randn(B, S, D, generator=g, device=dev).bfloat16()
     n0 = fused_attention_bwd.launches
@@ -188,7 +191,7 @@ def test_attention_bwd_kernel_matches_plain(dev, B, S, H, causal):
     for name, a, b, c in zip(("dq", "dk", "dv"), got, want, want32):
         assert a.dtype == torch.bfloat16 and a.is_contiguous(), name
         assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item(), name
-        heads = lambda t: t.float().reshape(B, S, H, 64).permute(0, 2, 1, 3).reshape(B * H, S * 64)
+        heads = lambda t: t.float().reshape(B, S, H, Hd).permute(0, 2, 1, 3).reshape(B * H, S * Hd)
         a, c = heads(a), heads(c)
         live = c.norm(dim=-1) > 0  # at S = 1 the softmax has no gradient: dq = dk = 0
         assert torch.equal(a[~live], torch.zeros_like(a[~live])), name
@@ -627,14 +630,13 @@ def test_qkv_kernels_reject_what_they_cannot_take(dev):
 
 
 @pytest.mark.parametrize("Hd", [80, 104])
-def test_bwd_and_qkv_kernels_raise_at_the_ladder_head_dims(dev, Hd):
-    """B5 and B8 are built at head dim 64 only: at H/14's 80 and bigG's 104
-    they raise NotImplementedError naming the head dim and ROADMAP B.1, and
-    never reach a kernel; the forward at the same head dim runs."""
+def test_qkv_kernel_raises_at_the_ladder_head_dims_and_bwd_kernel_runs(dev, Hd):
+    """B8 is built at head dim 64 only: at H/14's 80 and bigG's 104 it raises
+    NotImplementedError naming the head dim and ROADMAP B.1, and never
+    reaches a kernel. B5 and the forward run at the same head dims; B5 at a
+    head dim that no kernel is built at raises the same way."""
     H = 2
     x = torch.zeros(1, 8, H * Hd, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=f"head dim {Hd} not built.*ROADMAP B.1"):
-        fused_attention_bwd(x, x, x, x, H)
     w = torch.zeros(3 * H * Hd, H * Hd, device=dev, dtype=torch.bfloat16)
     b = torch.zeros(3 * H * Hd, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match=f"head dim {Hd} not built.*ROADMAP B.1"):
@@ -642,6 +644,12 @@ def test_bwd_and_qkv_kernels_raise_at_the_ladder_head_dims(dev, Hd):
     with pytest.raises(NotImplementedError, match=f"head dim {Hd} not built.*ROADMAP B.1"):
         attn.qkv_attention_probe(x, w, b, H)
     assert fused_attention(x, x, x, H).shape == x.shape
+    n0 = fused_attention_bwd.launches_by_hd.get(Hd, 0)
+    assert all(t.shape == x.shape for t in fused_attention_bwd(x, x, x, x, H))
+    assert fused_attention_bwd.launches_by_hd[Hd] == n0 + 1
+    y = torch.zeros(1, 8, 2 * 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head dim 48 not built"):
+        fused_attention_bwd(y, y, y, y, 2)
 
 
 def _ladder_depth2(name):
@@ -686,20 +694,36 @@ def test_ladder_towers_launch_b1_at_their_head_dims(dev, name):
         assert F.cosine_similarity(txt.float().cpu(), encode_text(cpu, ids), dim=-1).min() >= 0.99
 
 
-def test_ladder_train_step_fails_at_its_first_step_naming_the_head_dim(dev):
-    """Fine-tuning H/14 on the card: the forward runs (B1 at Hd 80), and the
-    first backward raises for B5's unbuilt head dim; nothing falls back."""
+@pytest.mark.parametrize("name", ["openclip-vit-H-14", "openclip-vit-bigG-14"])
+def test_ladder_train_step_launches_b5_at_its_head_dims(dev, name):
+    """A train step of H/14 and bigG at full width and depth 2 on the card (f32
+    master weights, bf16 compute): it completes, B5 runs once in each
+    tower's first layer at that tower's head dim (vision 80 or 104, text
+    64), and the gradients stay close to the f32 CPU step of the same
+    weights (chip_smoke.py's GRAD_MIN_COS)."""
     from image_search_tpu_torch.models.convert import build_model, init_params
     from image_search_tpu_torch.train.contrastive import adamw, make_train_step
 
-    cfg = _ladder_depth2("openclip-vit-H-14")
+    cfg = _ladder_depth2(name)
+    Hd_v = cfg.vision.hidden_size // cfg.vision.num_heads
     state = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
     px = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(1))
     ids = torch.randint(0, 49407, (2, 77), generator=torch.Generator().manual_seed(2))
-    init_fn, step_fn = make_train_step(cfg, adamw(1e-4), torch.bfloat16, False, dev)
-    s = init_fn(build_model(cfg, state, dev, torch.float32, trainable=True))
-    with pytest.raises(NotImplementedError, match="head dim 80 not built.*ROADMAP B.1"):
-        step_fn(s, ids, px)
+    ids[:, 9:] = 49407
+    grads = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        init_fn, step_fn = make_train_step(cfg, adamw(1e-4), dtype, False, where)
+        s = init_fn(build_model(cfg, state, where, torch.float32, trainable=True))
+        before = dict(fused_attention_bwd.launches_by_hd)
+        s, m = step_fn(s, ids, px)
+        assert torch.isfinite(m["loss"])
+        if where == dev:
+            torch.cuda.synchronize()
+            after = fused_attention_bwd.launches_by_hd
+            assert {hd: n - before.get(hd, 0) for hd, n in after.items() if n != before.get(hd, 0)} == {Hd_v: 1, 64: 1}
+        grads[where.type] = torch.cat([p.grad.float().cpu().flatten() for p in s.model.parameters()])
+        del s, init_fn, step_fn
+    assert F.cosine_similarity(grads["cuda"], grads["cpu"], dim=0) >= 0.99
 
 
 @pytest.mark.parametrize(
@@ -853,6 +877,34 @@ def test_forward_kernels_keep_each_head_in_its_columns_at_hd104(dev, core):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+def test_bwd_kernel_keeps_each_head_in_its_columns_at_hd104(dev, causal):
+    """At Hd 104 both of B5's passes pad the contraction of Q K^T and G V^T
+    to 112, whose columns 104-111 are the next head's: with every other
+    head's columns of q, k, v and g NaN, each head's dq, dk and dv must be
+    bitwise those of the all-finite run (a read of a neighbour's column,
+    even one multiplied by zero, carries the NaN in); the all-finite run's
+    outputs, in memory poisoned with NaN, are finite (every column written
+    by its own head)."""
+    B, S, H, Hd = 2, 257, 16, 104
+    D = H * Hd
+    q, k, v = _tower_qkv(dev, B, S, H, 1040 + causal, Hd)
+    go = torch.randn(B, S, D, generator=torch.Generator(device=dev).manual_seed(1041), device=dev).bfloat16()
+    torch.empty(B * S * D * 8, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
+    full = fused_attention_bwd(q, k, v, go, H, causal)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t.float()).all() for t in full)
+    for h in range(H):
+        cols = slice(h * Hd, (h + 1) * Hd)
+        alone = []
+        for t in (q, k, v, go):
+            x = torch.full((B, S, D), float("nan"), device=dev, dtype=torch.bfloat16)
+            x[..., cols] = t[..., cols]
+            alone.append(x)
+        for a, b in zip(fused_attention_bwd(*alone, H, causal), full):
+            assert torch.equal(a[..., cols], b[..., cols]), h
+
+
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("S", [1, 15, 17, 65, 257, 264, 300])
 def test_qkv_packed_kernel_on_strided_views_at_ragged_edges(dev, S, causal):
     """B7 reads q, k and v as column views of one [B, S, 3D] qkv (row stride
@@ -919,20 +971,21 @@ def test_attention_kernels_give_the_same_bits_on_every_run(dev, S, causal):
             assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("S", RAGGED_S)
-def test_attention_bwd_kernel_at_ragged_edges(dev, S, causal):
+def test_attention_bwd_kernel_at_ragged_edges(dev, S, causal, Hd):
     """B5 at every tile edge: within 2e-2 x max|plain| of the bf16 plain
     version, per (batch, head) cosine >= 0.999 against f32 where the softmax
     has a gradient (S = 1 has none: exactly zero)."""
     B, H = 2, 3
-    q, k, v = _tower_qkv(dev, B, S, H, 29 * S + causal)
-    go = torch.randn(B, S, H * 64, generator=torch.Generator(device=dev).manual_seed(S), device=dev).bfloat16()
+    q, k, v = _tower_qkv(dev, B, S, H, _seed(29 * S + causal, Hd), Hd)
+    go = torch.randn(B, S, H * Hd, generator=torch.Generator(device=dev).manual_seed(S), device=dev).bfloat16()
     got = fused_attention_bwd(q, k, v, go, H, causal)
     torch.cuda.synchronize()
     want = attention_bwd_reference(q, k, v, go, H, causal)
     want32 = attention_bwd_reference(q.float(), k.float(), v.float(), go.float(), H, causal)
-    heads = lambda t: t.float().reshape(B, S, H, 64).permute(0, 2, 1, 3).reshape(B * H, S * 64)
+    heads = lambda t: t.float().reshape(B, S, H, Hd).permute(0, 2, 1, 3).reshape(B * H, S * Hd)
     for name, a, b, c in zip(("dq", "dk", "dv"), got, want, want32):
         assert a.dtype == torch.bfloat16 and a.is_contiguous() and torch.isfinite(a.float()).all(), name
         assert (a.float() - b.float()).abs().max().item() <= 2e-2 * max(b.float().abs().max().item(), 1e-30), name
@@ -943,8 +996,9 @@ def test_attention_bwd_kernel_at_ragged_edges(dev, S, causal):
             assert F.cosine_similarity(a[live], c[live], dim=-1).min() >= 0.999, name
 
 
+@pytest.mark.parametrize("Hd", HEAD_DIMS)
 @pytest.mark.parametrize("S,causal", [(257, False), (77, True), (1, False), (17, True), (300, False)])
-def test_attention_bwd_column_pass_reproduces_the_row_pass(dev, S, causal):
+def test_attention_bwd_column_pass_reproduces_the_row_pass(dev, S, causal, Hd):
     """B5's column pass recomputes p32 and ds from the row pass's (max, sum,
     t) with the same operands in the same roles and the same k-step order:
     the two passes' maps (isx_attention_bwd_probe) are bitwise equal, and the
@@ -954,14 +1008,14 @@ def test_attention_bwd_column_pass_reproduces_the_row_pass(dev, S, causal):
     from image_search_tpu_torch import _build
 
     B, H = 2, 3
-    q, k, v = _tower_qkv(dev, B, S, H, 31 * S + causal)
-    go = torch.randn(B, S, H * 64, generator=torch.Generator(device=dev).manual_seed(S + 1), device=dev).bfloat16()
+    q, k, v = _tower_qkv(dev, B, S, H, _seed(31 * S + causal, Hd), Hd)
+    go = torch.randn(B, S, H * Hd, generator=torch.Generator(device=dev).manual_seed(S + 1), device=dev).bfloat16()
     dq, dk, dv = (torch.empty_like(go) for _ in range(3))
     stats = torch.empty(3, B, H, S, device=dev)
     probe = torch.zeros(2, 2, B, H, S, S, device=dev)
     rc = _build.lib().isx_attention_bwd_probe(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), probe.data_ptr(), B, S, H, 64, q.stride(1), k.stride(1), v.stride(1), go.stride(1),
+        stats.data_ptr(), probe.data_ptr(), B, S, H, Hd, q.stride(1), k.stride(1), v.stride(1), go.stride(1),
         int(causal), ctypes.c_float(1.0), _build.stream_handle(dev),
     )
     _build.check(rc, "attention backward probe")

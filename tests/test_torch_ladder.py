@@ -160,7 +160,7 @@ def test_plain_versions_match_the_oracle(core, S, causal, Hd):
     _close(got.numpy(), _oracle(q, k, v, causal, scale).reshape(B, S, H * Hd))
 
 
-# ---- the towers, the checkpoint, the HF conversion -----------------------------
+# ---- the towers, a train step, the checkpoint, the HF conversion -----------------
 
 
 def test_towers_match_jax(ladder):
@@ -181,6 +181,36 @@ def test_towers_match_jax(ladder):
     want_txt = jax.jit(jclip.encode_text, static_argnums=1)(jparams, jc, jnp.asarray(ids))
     _close(img.numpy(), want_img, min_cos=TOWER_MIN_COS)
     _close(txt.numpy(), want_txt, min_cos=TOWER_MIN_COS)
+
+
+def test_train_step_matches_jax(ladder):
+    """One contrastive train step of the tiny ladder configuration (vision
+    head dim 80 or 104, so B5's plain version runs at those head dims; text
+    64) in f32: the loss and every gradient against ``jax.value_and_grad`` of
+    the reference's loss, at ``test_torch_train.py``'s tolerances (rtol
+    1e-4, atol 1e-5)."""
+    from image_search_tpu.train import contrastive as jtrain
+    from image_search_tpu_torch.train import contrastive
+
+    jc, pc, jparams, state = ladder
+    rng = np.random.default_rng(2)
+    ids = rng.integers(1, jc.text.eos_token_id, size=(4, 16)).astype(np.int32)
+    ids[:, -1], ids[1, 6:] = jc.text.eos_token_id, jc.text.eos_token_id
+    px = rng.standard_normal((4, 28, 28, 3)).astype(np.float32)
+
+    def loss_fn(p):
+        img, txt, scale = jclip.forward(p, jc, jnp.asarray(ids), jnp.asarray(px), compute_dtype=jnp.float32)
+        return jtrain.clip_loss(img, txt, scale)[0]
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(jax.tree.map(jnp.asarray, jparams))
+    init_fn, step_fn = contrastive.make_train_step(pc, contrastive.adamw(1e-3), torch.float32, False, "cpu")
+    st, metrics = step_fn(init_fn(convert.build_model(pc, state, "cpu", torch.float32, trainable=True)), ids, px)
+    np.testing.assert_allclose(float(metrics["loss"]), float(want_loss), rtol=1e-4, atol=1e-5)
+    want = convert.params_from_jax(jax.tree.map(np.asarray, want_grads), pc)
+    got = {k: p.grad for k, p in st.model.named_parameters()}
+    assert set(got) == set(want)
+    for k, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[k].reshape(g.shape).numpy(), rtol=1e-4, atol=1e-5, err_msg=k)
 
 
 def test_port_reads_the_reference_checkpoint(ladder, tmp_path):

@@ -465,3 +465,42 @@ def test_certifiable_estimate_when_k_covers_the_corpus():
         jts.estimate_certifiable_fraction(rows, basis, corpus_size=64, **kw)
     rows = concentrated(rng, 500)
     assert twostage.estimate_certifiable_fraction(rows, twostage.fit_basis(rows, 64), corpus_size=500, **kw) == 1.0
+
+
+# ---- the bound's slack at the ladder's row widths -------------------------------
+
+
+@pytest.mark.parametrize("dim", [256, 768, 1024, 1280])
+def test_slack_follows_the_row_width(dim):
+    """The UB inflation covers the D-long f32 reductions in the bound
+    (gamma_D ~ D * 2^-23, the account the reference sizes its 1e-4 by at
+    768): the reference's constant up to 768, so narrower answers stay the
+    JAX package's, and 1e-4 * D / 768 above (ViT-H/14's 1024, bigG's 1280);
+    the bound terms the search builds carry it."""
+    want = jts.SLACK * max(dim, 768) / 768
+    assert twostage.slack_for_dim(dim) == want
+    assert twostage.slack_for_dim(dim) >= dim * 2.0**-23
+    if dim <= 768:
+        assert twostage.slack_for_dim(dim) == jts.SLACK == 1e-4
+    basis = torch.from_numpy(np.linalg.qr(np.random.default_rng(dim).normal(size=(dim, 8)))[0].astype(np.float32))
+    q = torch.zeros(2, dim)
+    q[:, 0] = 1.0
+    _, _, infl = twostage._query_bound_terms(q, basis, 0.0)
+    assert torch.equal(infl, torch.full((2,), want, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["f32", "int8"])
+def test_certified_answer_at_d1280_is_the_full_scan(quantize):
+    """bigG's row width: ``search_twostage`` certifies queries drawn from the
+    corpus's own mix and answers as the full scan (int8 bitwise, f32 within
+    the full scan's own rounding)."""
+    rng = np.random.default_rng(1280)
+    x = concentrated(rng, 8192 + 4, dim=1280)
+    port = VectorIndex(1280, device="cpu", quantize=quantize)
+    port.add([f"p{i}" for i in range(8192)], x[:8192])
+    port.build_sketch()
+    assert port.sketch_fresh
+    before = _counts(port)
+    got = port.search_twostage(x[8192:], 20, candidates=512)
+    assert tuple(a - b for a, b in zip(_counts(port), before)) == (1, 0)
+    assert_same(got, port.search(x[8192:], 20), bitwise=quantize == "int8")
