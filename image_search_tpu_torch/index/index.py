@@ -45,6 +45,7 @@ from image_search_tpu_torch.index import twostage
 from image_search_tpu_torch.index.store import EmbeddingStore
 from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queries_int8, row_norms, stream_scores_int8
 from image_search_tpu_torch.ops.topk import exact_topk, lax_topk
+from image_search_tpu_torch.utils.metrics import span
 
 log = logging.getLogger(__name__)
 
@@ -116,27 +117,29 @@ def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None, app
     off the TPU) instead of ``exact_topk``'s two-level order."""
     parts = []
     start = 0
-    if scales is not None:
-        qi, qs = quantize_queries_int8(queries.float())
-        for i, slab in enumerate(slabs):
-            parts.append(
-                stream_scores_int8(
-                    slab, qi, qs, scales[i], size - start, None if pens is None else pens[i]
+    with span("search.scan"):
+        if scales is not None:
+            qi, qs = quantize_queries_int8(queries.float())
+            for i, slab in enumerate(slabs):
+                parts.append(
+                    stream_scores_int8(
+                        slab, qi, qs, scales[i], size - start, None if pens is None else pens[i]
+                    )
                 )
-            )
-            start += slab.shape[0]
-    else:
-        q = _l2(queries.float())
-        for i, slab in enumerate(slabs):
-            s = float_scores(q, slab)
-            if pens is not None:
-                s = s + pens[i][None, :]
-            n = slab.shape[0]
-            valid = (torch.arange(n, device=slab.device) + start) < size
-            parts.append(torch.where(valid[None, :], s, torch.full_like(s, NEG_INF)))
-            start += n
-    scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    return lax_topk(scores, k) if approx else exact_topk(scores, k)
+                start += slab.shape[0]
+        else:
+            q = _l2(queries.float())
+            for i, slab in enumerate(slabs):
+                s = float_scores(q, slab)
+                if pens is not None:
+                    s = s + pens[i][None, :]
+                n = slab.shape[0]
+                valid = (torch.arange(n, device=slab.device) + start) < size
+                parts.append(torch.where(valid[None, :], s, torch.full_like(s, NEG_INF)))
+                start += n
+        scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    with span("search.topk"):
+        return lax_topk(scores, k) if approx else exact_topk(scores, k)
 
 
 def _pow2_at_least(n: int, floor: int) -> int:
@@ -554,7 +557,8 @@ class VectorIndex:
 
     @staticmethod
     def _to_host(s, i):
-        return s.cpu().numpy(), i.cpu().numpy().astype(np.int32)
+        with span("search.to_host"):  # the search's one wait for the device
+            return s.cpu().numpy(), i.cpu().numpy().astype(np.int32)
 
     def search(self, queries, k: int = 1000, approx: bool = False):
         """Raw query vectors [B, D] or [D] (numpy or tensor) -> (scores [B, k],
@@ -601,7 +605,8 @@ class VectorIndex:
         sel = np.full((B, m), -1, np.int64)
         for b, r in enumerate(rows_list):
             sel[b, : len(r)] = r
-        q = _rocchio_queries(slabs, scales, norms, text, torch.from_numpy(sel).to(self.device))
+        with span("search.rocchio"):
+            q = _rocchio_queries(slabs, scales, norms, text, torch.from_numpy(sel).to(self.device))
         return self._to_host(*_search_local(slabs, size, q, k, scales, pens, approx))
 
     # -- the corpus sketch (index/twostage.py) ----------------------------------

@@ -56,7 +56,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from image_search_tpu_torch.server import args as server_args
 from image_search_tpu_torch.server.engine import MEDIA_PREFIX, SearchEngine
 from image_search_tpu_torch.server.wire import SearchParams
-from image_search_tpu_torch.utils.metrics import global_metrics
+from image_search_tpu_torch.utils.metrics import global_metrics, span
 
 log = logging.getLogger(__name__)
 
@@ -72,7 +72,10 @@ class SearchBatcher:
     batch and one index pass; each request's ``referenced_images`` ride
     along as its own selection row, and an empty selection is the plain
     search bitwise. ``stop`` answers every request still queued with an
-    error, so no handler waits forever."""
+    error, so no handler waits forever. Each request's wait in the queue,
+    from ``submit`` to the worker taking it, adds to the counters
+    ``search_queue_wait_s`` and ``search_queue_waits``; collecting a batch
+    is the span ``batcher.collect``."""
 
     def __init__(self, engine: SearchEngine, window_ms: float, max_batch: int = 32):
         self.engine = engine
@@ -114,7 +117,7 @@ class SearchBatcher:
         with self._lock:
             if self._stopped:
                 raise RuntimeError("search batcher stopped")
-            self._queue.put((query, tuple(referenced_images), fut))
+            self._queue.put((query, tuple(referenced_images), fut, time.monotonic()))
         return fut.result()
 
     def _run(self) -> None:
@@ -122,35 +125,40 @@ class SearchBatcher:
             first = self._queue.get()
             if first is None:
                 return
-            batch, stopping = [first], False
-            deadline = time.monotonic() + self.window
-            while len(batch) < self.max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    item = self._queue.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if item is None:
-                    stopping = True
-                    break
-                batch.append(item)
+            taken = time.monotonic()
+            batch, stopping, waited = [first], False, taken - first[3]
+            with span("batcher.collect"):
+                deadline = taken + self.window
+                while len(batch) < self.max_batch:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        item = self._queue.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if item is None:
+                        stopping = True
+                        break
+                    waited += time.monotonic() - item[3]
+                    batch.append(item)
+            global_metrics.inc("search_queue_wait_s", waited)
+            global_metrics.inc("search_queue_waits", len(batch))
             if stopping:
                 _fail(batch)
                 return
             try:
-                results = self.engine.search_many([q for q, _, _ in batch], [sel for _, sel, _ in batch])
+                results = self.engine.search_many([q for q, _, _, _ in batch], [sel for _, sel, _, _ in batch])
             except Exception as err:  # answered per request
-                for _, _, fut in batch:
+                for _, _, fut, _ in batch:
                     fut.set_exception(err)
                 continue
-            for (_, _, fut), res in zip(batch, results):
+            for (_, _, fut, _), res in zip(batch, results):
                 fut.set_result(res)
 
 
 def _fail(batch) -> None:
-    for _, _, fut in batch:
+    for _, _, fut, _ in batch:
         if not fut.done():
             fut.set_exception(RuntimeError("search batcher stopped"))
 
@@ -267,7 +275,8 @@ def _handler_class(engine: SearchEngine, scan_lock: threading.Lock, static_dir: 
             except Exception:
                 log.exception("search failed")
                 return self._send(500, b"")
-            self._send(200, engine.render_images_json(images))
+            with span("http.render"):
+                self._send(200, engine.render_images_json(images))
 
         def _search_image(self, body: bytes, query: dict):
             if not body:

@@ -50,7 +50,7 @@ from image_search_tpu_torch.models.convert import (
 from image_search_tpu_torch.models.embedder import ClipEmbedder
 from image_search_tpu_torch.server.args import ServerArgs
 from image_search_tpu_torch.tokenizer import CLIPBPETokenizer, HashTokenizer
-from image_search_tpu_torch.utils.metrics import global_metrics
+from image_search_tpu_torch.utils.metrics import global_metrics, span
 
 log = logging.getLogger(__name__)
 
@@ -268,16 +268,17 @@ class SearchEngine:
         mesh, holds here always: a mesh raises at construction.)"""
         k = k or self.args.k
         queries = list(queries)
-        sel_lists = [
-            [p for p in (self._resolve_selection(m) for m in sel) if p is not None]
-            for sel in (selections or [()] * len(queries))
-        ]
+        with span("search.resolve"):
+            sel_lists = [
+                [p for p in (self._resolve_selection(m) for m in sel) if p is not None]
+                for sel in (selections or [()] * len(queries))
+            ]
+            local = {}
+            for q in queries:
+                hit = self._cache_get(q)
+                if hit is not None:
+                    local[q] = hit
         n_feedback = sum(1 for s in sel_lists if s)
-        local = {}
-        for q in queries:
-            hit = self._cache_get(q)
-            if hit is not None:
-                local[q] = hit
         approx = self.args.search_approx
         use_twostage = (
             self.args.search_twostage and not approx and self.index.sketch_fresh
@@ -291,7 +292,7 @@ class SearchEngine:
         hits = sum(1 for q in queries if q in local)
         misses = list(dict.fromkeys(q for q in queries if q not in local))
         if misses:
-            with global_metrics.timer("text_embed"):
+            with span("search.text_tower"):
                 embs = self.embedder.embed_texts_device(misses)  # stays on the device
             for b, q in enumerate(misses):
                 local[q] = embs[b]
@@ -307,7 +308,8 @@ class SearchEngine:
                 # empty selection IS the plain search, bitwise
                 scores, idx = self.index.search_with_feedback_batch(q_mat, sel_lists, k, approx=approx)
         self._inc_search_metrics(len(queries), n_feedback)
-        return [self._format_results(scores[b], idx[b]) for b in range(len(queries))]
+        with span("search.format"):
+            return [self._format_results(scores[b], idx[b]) for b in range(len(queries))]
 
     def _inc_search_metrics(self, n_queries: int, n_feedback: int) -> None:
         global_metrics.inc("searches", n_queries)

@@ -1,10 +1,27 @@
-"""Runtime metrics: counters + latency quantiles.
+"""Runtime metrics of the port: counters, gauges, host timers and spans.
 
-The reference has logging only (SURVEY.md §5 — env_logger, no counters, no
-latency tracking). BASELINE.md makes images/sec and p50/p95 query latency
-first-class, so the server tracks them natively and exposes ``GET /metrics``.
+- ``inc(name, value)``: a counter, always on. ``GET /metrics`` serves them,
+  and an operator (or a benchmark reading two snapshots) takes their
+  differences over an interval: searches, text-cache hits, scans, and the
+  search batcher's ``search_queue_wait_s`` / ``search_queue_waits`` (the
+  seconds requests waited in the queue before a batch took them, and how
+  many were taken), which tell queueing from service time.
+- ``gauge(name, value)``: the last value of a state, always on, served by
+  ``GET /metrics``: the corpus size, warm-up done, two-stage state, scan
+  progress.
+- ``timer(name)``: a host-clock timer, always on, of a whole operation
+  (``index_search``, ``image_embed``, ``scan``, ...); ``GET /metrics``
+  serves its call count and quantiles over a reservoir of recent samples.
+  On the card a block that does not wait for the device times only its
+  launches. Every timer is also a span of its name.
+- ``span(name)``: a range of the host's work, recorded only while a
+  ``torch.profiler`` session runs in the process (as a
+  ``torch.profiler.record_function``, on the profiler's clock beside the
+  card's kernels, so a trace attributes device time and idle gaps to it).
+  With no profiler running it costs one check of the profiler's flag.
+  Spans are read from a profiler trace, never from ``GET /metrics``.
 
-Thread-safe; quantiles over a bounded reservoir of recent samples.
+Thread-safe.
 """
 
 from __future__ import annotations
@@ -12,8 +29,21 @@ from __future__ import annotations
 import threading
 import time
 from collections import defaultdict, deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict
+
+from torch.autograd import profiler as _profiler
+
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A context manager: a ``record_function(name)`` range while a
+    ``torch.profiler`` session runs in the process, else a shared no-op
+    (no lock, clock read or allocation)."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _NO_SPAN
 
 
 class _Latency:
@@ -63,9 +93,12 @@ class Metrics:
 
     @contextmanager
     def timer(self, name: str):
+        """Host seconds of the block into ``name``'s latencies; the block is
+        also ``span(name)``."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.observe(name, time.perf_counter() - t0)
 
