@@ -30,7 +30,10 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    text S=16 causal), 80 and 104 (B=64 S=257 H=16) beside SDPA's backward,
    at the ragged edges S = 1, 33, 300, its row and column passes' p32/ds
    maps bitwise equal (``isx_attention_bwd_probe``), and at 104 every head's
-   gradients bitwise unchanged with its neighbours' columns NaN. The
+   gradients bitwise unchanged with its neighbours' columns NaN; the append
+   transform (R1, ``ops/row_quant.py``) at 4096 and 131,072 x 768 raw rows
+   into int8, bf16 and f32 slab slices, bitwise its plain version, timed
+   against it by bursts of calls (burst_ms). The
    attention kernels (B1, B1p, B5, B6, B7, B8) and B9, their plain versions
    and the PyTorch calls are timed by replaying a CUDA graph of 10 calls
    (device time: a text-size kernel is shorter than one launch from Python)
@@ -45,9 +48,10 @@ Phases, each of which raises (and the script exits non-zero) on a failed check:
    composition of ``models/block_fused.py`` (B9 + B7 + B9, B9 + B1p, B1 +
    B9), each held against the same f32 forward, its launches counted
    exactly, and timed in turns with the default;
-5. the HTTP server on 64 synthetic BMP photos with an int8 index: /scan,
-   /search with and without Rocchio feedback (checked against the plain
-   scoring of the same index), /health; again on fresh servers under
+5. the HTTP server on 64 synthetic BMP photos with an int8 index: /scan
+   (R1 launched at least once a slab its flushes reach), /search with and
+   without Rocchio feedback (checked against the plain scoring of the same
+   index), /health; again on fresh servers under
    ``ISX_ATTN_PIPE=0`` (B1p, never B1) and ``ISX_VIT_SPAD=264``;
 6. GET /duplicates on the same server by its three routes: legacy on the
    photos plus byte-identical copies (groups against a brute-force f32 pair
@@ -164,6 +168,7 @@ CERT_ROWS = 262_144  # the certified route's corpus: over the engine's 200,000-r
 APPROX_ROWS = 1_048_576  # the approximate route's corpus: over its 1,000,000-row cut
 LEGACY_ROWS = 196_608  # the legacy route's largest corpus: just under the engine's 200,000-row sketch cut
 LEGACY_COPIES = [(3, 150_000), (5, 100_000), (1024, 1025), (77_777, 196_607)]  # (row, its byte-identical copy)
+ROW_QUANT_ROWS = (4096, 131_072)  # R1: one add of the benchmark's loader, one sealed store segment of a restore
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bounds below
 HBM_BYTES_PER_S = 3.35e12
@@ -201,6 +206,25 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2):
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b))
+    return out
+
+
+def burst_ms(torch, fn, iters: int, reps: int = 10):
+    """Per-call times (ms) of ``fn``: ``reps`` calls back to back between
+    CUDA events, ``iters`` times, after a warm-up call. For a kernel shorter
+    than one launch from Python whose plain version cannot be captured in a
+    CUDA graph (R1's indexes by a host tensor)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
     return out
 
 
@@ -676,6 +700,47 @@ def check_ln_matmul(torch, gen, dev, M, K, N):
                 linear_ms=lin_ms, bound_ms=b_ms, bound_by=b_by, shape=shape)
 
 
+def check_row_quant(torch, gen, dev, N: int, fmt):
+    """R1 on N raw f32 rows of DIM at magnitudes 0.01-100 (row 0 zero): one
+    launch into slab slices at a nonzero offset, bitwise the plain version
+    run on the CPU (itself bitwise numpy's host path), the rows around the
+    slices untouched; the plain version on the card, and whether it too is
+    bitwise; timed in turns by burst_ms beside the byte bound."""
+    from image_search_tpu_torch.ops.row_quant import normalize_rows_into, normalize_rows_reference
+
+    x = torch.randn(N, DIM, generator=gen, device=dev) * torch.empty(N, 1, device=dev).uniform_(
+        0.01, 100.0, generator=gen)
+    x[0] = 0
+    lo, int8 = 123, fmt == torch.int8
+    rows = torch.full((lo + N, DIM), 7, dtype=fmt, device=dev)
+    norms = torch.full((lo + N,), -2.0, device=dev)
+    scales = torch.full((lo + N,), -3.0, device=dev) if int8 else None
+    out = (rows[lo:], norms[lo:], scales[lo:] if int8 else None)
+    n0 = normalize_rows_into.launches
+    normalize_rows_into(x, *out)
+    n_launch = normalize_rows_into.launches - n0
+    bits = lambda t: t.contiguous().view(torch.uint8).cpu()
+    want = normalize_rows_reference(x.cpu(), fmt)
+    on_card = normalize_rows_reference(x, fmt)
+    name = f"R1 row_quant N={N} D={DIM} {str(fmt).split('.')[-1]}"
+    check(n_launch == 1, f"{name}: {n_launch} launches")
+    for what, got, w in zip(("rows", "norms", "scales"), out, want):
+        if w is not None:
+            check(torch.equal(bits(got), bits(w)), f"{name}: {what} not bitwise the plain version")
+    check((rows[:lo] == 7).all() and (norms[:lo] == -2).all() and (not int8 or (scales[:lo] == -3).all()),
+          f"{name}: rows before the slice written")
+    card_bitwise = all(torch.equal(bits(a), bits(b)) for a, b in zip(on_card, want) if b is not None)
+    k_ms, p_ms = ab_ms(torch, lambda: normalize_rows_reference(x, fmt), lambda: normalize_rows_into(x, *out),
+                       iters=10, timer=burst_ms)
+    nbytes = N * DIM * (4 + rows.element_size()) + 4 * N * (2 if int8 else 1)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{name}: bitwise_equal=True launches={n_launch} kernel_ms={k_ms} "
+          f"({nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s, bound_share={b_ms / k_ms:.1%}) plain_ms={p_ms} "
+          f"(on the card, bitwise {card_bitwise}) bound_ms={b_ms} (bytes)")
+    return dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by="bytes",
+                shape=f"N={N} D={DIM} {str(fmt).split('.')[-1]} rows", plain_on_card_bitwise=card_bitwise)
+
+
 def phase_kernels(torch, gen, dev):
     from image_search_tpu_torch.ops.attention import fused_qkv_attention
     from image_search_tpu_torch.ops.blockmax import (
@@ -763,6 +828,10 @@ def phase_kernels(torch, gen, dev):
                     + ("  (kernel SLOWER than plain)" if k_ms > p_ms else "")
                 )
         del rows, scales, pens, got, want
+    torch.cuda.empty_cache()
+    for N in ROW_QUANT_ROWS:
+        for fmt in (torch.int8, torch.bfloat16, torch.float32):
+            res[("row_quant", N, fmt)] = check_row_quant(torch, gen, dev, N, fmt)
     torch.cuda.empty_cache()
 
     # B3 and B4 on augmented sketches (64 dims + the residual norm): B3 at the
@@ -1084,6 +1153,10 @@ def _scan_and_search(torch, engine, base: str, k: int):
             check(d["id"] == urllib.parse.quote(d["image_path"], safe=""), f"/search {name}: id {d['id']}")
     check(st3 == 200 and health["status"] == "ok" and health["corpus"] == 64, f"/health: {health}")
     check(launches["stream_scores_int8"] > 0, f"B2 not on the path: {launches}")
+    idx = engine.index
+    first, last = idx._locate(idx._size - scan["embedded"])[0], idx._locate(idx._size - 1)[0]
+    check(launches["normalize_rows_into"] >= last - first + 1,
+          f"/scan's flushes reached slabs {first}-{last} but R1 ran {launches['normalize_rows_into']} times")
     check([d["score"] for d in plain["images"]] != [d["score"] for d in fb["images"]],
           "feedback did not move the query")
     for name, body, refs in (("plain", plain, []), ("feedback", fb, marked)):
@@ -2203,11 +2276,12 @@ def _kernel_counts():
     from image_search_tpu_torch.ops import attention as A
     from image_search_tpu_torch.ops.blockmax import blockpair_mask, blockpair_values
     from image_search_tpu_torch.ops.ln_matmul import ln_matmul
+    from image_search_tpu_torch.ops.row_quant import normalize_rows_into
     from image_search_tpu_torch.ops.score_stream import stream_scores_int8
 
     return (A.fused_attention, A.fused_attention_packed, A.fused_attention_split, A.fused_attention_split_padded,
             A.fused_attention_bwd, stream_scores_int8, blockpair_mask, blockpair_values,
-            A.fused_attention_qkv_packed, A.fused_qkv_attention, ln_matmul)
+            A.fused_attention_qkv_packed, A.fused_qkv_attention, ln_matmul, normalize_rows_into)
 
 
 def _reset_counts():
@@ -3166,6 +3240,19 @@ def entry(name, source, replaces, path_launches, row, max_abs_err):
             "max_abs_err": max_abs_err, **{k: row[k] for k in keys}}
 
 
+def row_quant_entry(path_launches, kern):
+    """R1's entry of the ``kernels`` line: it replaces no Pallas kernel (the
+    JAX package normalizes and quantizes appended rows in numpy on the host,
+    ``image_search_tpu/index/index.py::_quantize_host``); timed at the
+    restore's segment of int8 rows."""
+    import torch
+
+    row = kern[("row_quant", ROW_QUANT_ROWS[-1], torch.int8)]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    return {"name": "normalize_rows_into", "route": "cuda", "source": "image_search_tpu_torch/csrc/row_quant.cu",
+            "replaces": None, "launches": path_launches, "max_abs_err": 0.0, **{k: row[k] for k in keys}}
+
+
 def ladder_entries(ladder):
     """The ``kernels`` line's entries at the ladder's vision head dims, from
     phase_ladder's result: launches at that head dim as the wrappers counted
@@ -3326,6 +3413,8 @@ def main() -> int:
         entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:42",
               towers["fused"]["fully fused"]["launches"]["ln_matmul"], kern[("ln_matmul", 3072)],
               max(kern[("ln_matmul", 3072)]["max_abs_err"], kern[("ln_matmul", 4096)]["max_abs_err"])),
+        row_quant_entry(launches["normalize_rows_into"] + ts_launches["normalize_rows_into"]
+                        + sv_launches["normalize_rows_into"], kern),
         *ladder_entries(ladder),
         *new_head_dim_entries(kern["attention_bwd_hd"], ladder, train_ladder, learned),
     ], "img_per_s": towers["img_per_s"],

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "isx_qkv_attention": ([_vp] * 4 + [_i, _i, _i, _i, _i, _f, _vp], _i),
     "isx_qkv_attention_probe": ([_vp] * 4 + [_i, _i, _i, _i, _vp], _i),
     "isx_qkv_attention_smem_bytes": ([_i], _sz),
+    "isx_row_quant": ([_vp, _vp, _vp, _vp, _ll, _i, _i, _vp, _i, _i, _vp], _i),
 }
 
 

@@ -6,12 +6,15 @@ f32, bf16 or int8 rows:
 - rows are stored l2-NORMALIZED next to their original norms, so the raw
   vectors the reference stores are ``row * norm`` and the Rocchio average is
   taken in raw space;
-- int8 rows are quantized on the host in the reference's numpy op order and
-  scored by kernel B2 (``ops.score_stream.stream_scores_int8``); f32 and bf16
-  rows by one GEMM (plain XLA in the reference; ``ops.score_stream.float_scores``);
+- appended rows are normalized (and quantized) where the index lives by
+  ``ops.row_quant.normalize_rows_into``: on the card one kernel launch a
+  chunk of at most ``_APPEND_ROWS`` rows within a slab, bitwise the
+  reference's numpy host path; int8 rows are scored by kernel B2
+  (``ops.score_stream.stream_scores_int8``), f32 and bf16 rows by one GEMM
+  (plain XLA in the reference; ``ops.score_stream.float_scores``);
 - rows live in slabs: the first doubles up to ``slab_rows``, then whole new
-  slabs are added, so growth never copies the corpus; appends are written in
-  4096-row-aligned blocks;
+  slabs are added, so growth never copies the corpus; capacity grows in
+  multiples of 4096 rows;
 - tombstones are additive score penalties (0 live, NEG_INF removed), passed
   to the scan only once a removal happened (``remove_paths``; with
   ``exclude=True`` the store also keeps rescans from re-adding the paths);
@@ -43,6 +46,7 @@ import torch
 
 from image_search_tpu_torch.index import twostage
 from image_search_tpu_torch.index.store import EmbeddingStore
+from image_search_tpu_torch.ops.row_quant import normalize_rows_into
 from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queries_int8, row_norms, stream_scores_int8
 from image_search_tpu_torch.ops.topk import exact_topk, lax_topk
 from image_search_tpu_torch.utils.metrics import span
@@ -52,6 +56,7 @@ log = logging.getLogger(__name__)
 NEG_INF = float(torch.finfo(torch.float32).min)
 _UPDATE_BLOCK = 4096  # rows per aligned append block
 DEFAULT_SLAB_ROWS = 1 << 20  # rows per full slab (int8 x 768 = 0.77 GB)
+_APPEND_ROWS = 16384  # raw rows on the device per transform launch (50 MB of f32 at D = 768)
 
 QUANT_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
@@ -357,18 +362,6 @@ class VectorIndex:
             start += n
         raise IndexError(gpos)
 
-    def _quantize_host(self, normalized: np.ndarray):
-        """Normalized f32 rows -> (host rows tensor in the slab dtype, f32
-        scales or None). bf16 rounds to nearest even, as the reference's
-        ``astype(jnp.bfloat16)``."""
-        if self.quantize == "int8":
-            amax = np.abs(normalized).max(axis=1)
-            scale = np.maximum(amax, 1e-12) / 127.0
-            q = np.clip(np.round(normalized / scale[:, None]), -127, 127).astype(np.int8)
-            return torch.from_numpy(q), scale.astype(np.float32)
-        rows = torch.from_numpy(np.ascontiguousarray(normalized, np.float32))
-        return rows.to(self._row_dtype), None
-
     # -- mutation -------------------------------------------------------------
 
     def __len__(self) -> int:
@@ -390,7 +383,7 @@ class VectorIndex:
 
     def _add_in_memory(self, paths: Sequence[str], embeddings: np.ndarray) -> int:
         with self._lock:
-            embeddings = np.asarray(embeddings, np.float32)
+            embeddings = np.require(embeddings, np.float32, "CW")
             # dedup against the index AND within the batch (first one wins)
             seen: set = set()
             keep = []
@@ -405,22 +398,19 @@ class VectorIndex:
                 paths = [paths[i] for i in keep]
                 embeddings = embeddings[keep]
             n = len(paths)
-            norms = np.linalg.norm(embeddings, axis=1)
-            normalized = embeddings / np.maximum(norms, 1e-12)[:, None]
-            rows, scales = self._quantize_host(normalized)
-            norms = norms.astype(np.float32)
             self._ensure_capacity(self._size + n)
-            off = 0
-            while off < n:
-                gpos = self._size + off
-                m = min(_UPDATE_BLOCK - gpos % _UPDATE_BLOCK, n - off)  # never straddles a slab
-                i, local = self._locate(gpos)
-                sl = slice(local, local + m)
-                self._emb_slabs[i][sl] = rows[off : off + m].to(self.device)
-                self._norm_slabs[i][sl] = torch.from_numpy(norms[off : off + m]).to(self.device)
-                if self._scale_slabs is not None:
-                    self._scale_slabs[i][sl] = torch.from_numpy(scales[off : off + m]).to(self.device)
-                off += m
+            with span("index.append"):
+                off = 0
+                while off < n:  # a chunk of raw rows to the device, one write within a slab
+                    i, local = self._locate(self._size + off)
+                    m = min(self._emb_slabs[i].shape[0] - local, _APPEND_ROWS, n - off)
+                    sl = slice(local, local + m)
+                    normalize_rows_into(
+                        torch.from_numpy(embeddings[off : off + m]).to(self.device),
+                        self._emb_slabs[i][sl], self._norm_slabs[i][sl],
+                        None if self._scale_slabs is None else self._scale_slabs[i][sl],
+                    )
+                    off += m
             for j, p in enumerate(paths):
                 self._row[p] = self._size + j
                 self._dead_paths.discard(p)  # re-added after a tombstone: live again

@@ -244,3 +244,26 @@ def test_ladder_training_and_the_gate_run_after_the_training_phases():
     assert phases[-3:] == ["phase_train_profile", "phase_train_ladder", "phase_learned_retrieval"]
     mod = _load()
     assert mod.GATE_SEEDS == (0, 1, 2) and mod.LADDER_TRAIN_STEPS >= 3
+
+
+def test_append_transform_is_counted_and_on_the_kernels_line():
+    """R1 (``normalize_rows_into``) is among the counted kernels, read and
+    reset with the others, and its entry of the ``kernels`` line names its
+    source, replaces no Pallas kernel and takes the restore segment's int8
+    timing."""
+    import ast
+
+    from image_search_tpu_torch.ops.row_quant import normalize_rows_into
+
+    mod = _load()
+    assert normalize_rows_into in mod._kernel_counts()
+    row = dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes", library_ms=None, shape="s")
+    kern = {("row_quant", n, fmt): dict(row, ms=float(n)) for n in mod.ROW_QUANT_ROWS
+            for fmt in (torch.int8, torch.bfloat16, torch.float32)}
+    entry = mod.row_quant_entry(7, kern)
+    assert entry["name"] == "normalize_rows_into" and entry["replaces"] is None and entry["launches"] == 7
+    assert entry["ms"] == float(mod.ROW_QUANT_ROWS[-1]) and mod.ROW_QUANT_ROWS == (4096, 131_072)
+    assert os.path.exists(os.path.join(REPO, entry["source"]))
+    with open(SCRIPT) as f:
+        main = next(n for n in ast.parse(f.read()).body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    assert "row_quant_entry(" in ast.unparse(main)

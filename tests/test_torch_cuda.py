@@ -1236,3 +1236,124 @@ def test_removal_runs_the_penalty_variant_bitwise_the_plain_version(dev):
         got = stream_scores_int8(slab, qi, qs, scales[j], index._size - start, pens[j])
         assert torch.equal(got, scores_int8_reference(slab, qi, qs, scales[j], index._size - start, pens[j]))
         start += slab.shape[0]
+
+
+ROW_QUANT_WIDTHS = [1, 5, 32, 64, 100, 129, 136, 257, 512, 768, 1024, 1280]
+ROW_FORMATS = [torch.int8, torch.bfloat16, torch.float32]
+
+
+def _append_rows(dev, n, d, seed):
+    """Raw f32 rows on the card: random normal at magnitudes 0.01-100, and
+    the edge rows (zero, one-hot, exact int8 ties at .5, 1e-20, 1e20)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=dev) * torch.empty(n, 1, device=dev).uniform_(0.01, 100.0, generator=g)
+    x[0] = 0
+    x[1] = 0
+    x[1, d // 2] = 3.0
+    if d >= 5:  # norm 128, max 127: y / scale = x, so 0.5, 1.5, 15.5, 3.5 tie
+        x[2] = 0
+        x[2, torch.randperm(d, generator=g, device=dev)[:5]] = torch.tensor([127, 0.5, -1.5, 15.5, -3.5], device=dev)
+    x[3] = torch.randn(d, generator=g, device=dev) * 1e-20
+    x[4] = torch.randn(d, generator=g, device=dev) * 1e20
+    return x
+
+
+@pytest.mark.parametrize("dtype", ROW_FORMATS, ids=["int8", "bf16", "f32"])
+@pytest.mark.parametrize("d", ROW_QUANT_WIDTHS)
+def test_row_quant_kernel_bitwise_equals_plain(dev, d, dtype):
+    """One launch writes a slab slice at a nonzero offset, bitwise the plain
+    version run on the CPU, with n not a multiple of a block's 8 rows, and
+    leaves the rows around the slice as they were."""
+    from image_search_tpu_torch.ops.row_quant import normalize_rows_into, normalize_rows_reference
+
+    n, lo, cap = 1037, 123, 1300
+    x = _append_rows(dev, n, d, seed=d)
+    rows = torch.full((cap, d), 7, dtype=dtype, device=dev)
+    norms = torch.full((cap,), -2.0, device=dev)
+    scales = torch.full((cap,), -3.0, device=dev) if dtype == torch.int8 else None
+    n0 = normalize_rows_into.launches
+    normalize_rows_into(x, rows[lo : lo + n], norms[lo : lo + n], None if scales is None else scales[lo : lo + n])
+    torch.cuda.synchronize()
+    assert normalize_rows_into.launches == n0 + 1
+    want_rows, want_norms, want_scales = normalize_rows_reference(x.cpu(), dtype)
+    assert torch.equal(rows[lo : lo + n].cpu().view(torch.uint8), want_rows.view(torch.uint8))
+    assert torch.equal(norms[lo : lo + n].cpu().view(torch.int32), want_norms.view(torch.int32))
+    if scales is not None:
+        assert torch.equal(scales[lo : lo + n].cpu().view(torch.int32), want_scales.view(torch.int32))
+        assert (scales[:lo] == -3).all() and (scales[lo + n :] == -3).all()
+    assert (rows[:lo] == 7).all() and (rows[lo + n :] == 7).all()
+    assert (norms[:lo] == -2).all() and (norms[lo + n :] == -2).all()
+
+
+def test_row_quant_kernel_rejects_what_it_cannot_take(dev):
+    from image_search_tpu_torch.ops.row_quant import normalize_rows_into
+
+    x = torch.zeros(4, 768, device=dev)
+    rows, norms = torch.zeros(4, 768, dtype=torch.int8, device=dev), torch.zeros(4, device=dev)
+    with pytest.raises(ValueError, match="scales"):
+        normalize_rows_into(x, rows, norms)  # int8 without scales
+    with pytest.raises(ValueError, match="scales"):
+        normalize_rows_into(x, rows.float(), norms, torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match="rows"):
+        normalize_rows_into(x, rows.to(torch.int16), norms)
+    with pytest.raises(ValueError, match="x"):
+        normalize_rows_into(x.half(), rows.float(), norms)
+    with pytest.raises(ValueError, match="shared memory"):
+        normalize_rows_into(torch.zeros(1, 200_000, device=dev), torch.zeros(1, 200_000, device=dev), norms[:1])
+
+
+def _append_writes(slab_rows, lo, n, chunk):
+    """The writes ``VectorIndex._add_in_memory`` makes for rows [lo, lo + n):
+    each slab's part in chunks of at most ``chunk`` rows."""
+    writes, start = 0, 0
+    for rows in slab_rows:
+        part = max(0, min(lo + n, start + rows) - max(lo, start))
+        writes += -(-part // chunk)
+        start += rows
+    return writes
+
+
+@pytest.mark.parametrize("chunk", [16384, 3000])
+@pytest.mark.parametrize("quantize", ["int8", "bfloat16", None])
+def test_cuda_index_appends_bitwise_the_cpu_index(dev, quantize, chunk, monkeypatch):
+    """4096-row adds (pageable and pinned, as the store's restore and the
+    benchmark's loader pass them) through the first slab's doubling and a
+    slab boundary, and one add longer than a chunk: the slabs, norms and
+    scales equal a CPU index's filled the same way, slab by slab, and the
+    kernel ran once a chunk within each slab an add reached."""
+    import numpy as np
+
+    from image_search_tpu_torch.index import index as index_mod
+    from image_search_tpu_torch.ops.row_quant import normalize_rows_into
+
+    monkeypatch.setattr(index_mod, "_APPEND_ROWS", chunk)
+    d, sizes = 768, [4096, 4096, 1000, 5192, 4096, 777, 20000]
+    x = np.random.default_rng(11).normal(size=(sum(sizes), d)).astype(np.float32)
+    x[5] = 0
+    kw = dict(quantize=quantize, min_capacity=4096, slab_rows=8192)
+    gpu, cpu = index_mod.VectorIndex(d, device=dev, **kw), index_mod.VectorIndex(d, device="cpu", **kw)
+    pinned = torch.empty(max(sizes), d, pin_memory=True)
+    off = 0
+    for j, n in enumerate(sizes):
+        paths = [f"/p/{i}.jpg" for i in range(off, off + n)]
+        rows = x[off : off + n]
+        if j % 2:
+            pinned[:n].copy_(torch.from_numpy(rows))
+            rows_in = pinned[:n].numpy()
+        else:
+            rows_in = rows
+        n0 = normalize_rows_into.launches
+        assert gpu.add(paths, rows_in) == n
+        want = _append_writes([s.shape[0] for s in gpu._emb_slabs], off, n, chunk)
+        assert normalize_rows_into.launches - n0 == want
+        assert cpu.add(paths, rows) == n
+        off += n
+    torch.cuda.synchronize()
+    assert len(gpu._emb_slabs) == len(cpu._emb_slabs) == 5
+    groups = [gpu._emb_slabs, gpu._norm_slabs] + ([gpu._scale_slabs] if quantize == "int8" else [])
+    groups_cpu = [cpu._emb_slabs, cpu._norm_slabs] + ([cpu._scale_slabs] if quantize == "int8" else [])
+    for slabs, slabs_cpu in zip(groups, groups_cpu):
+        for a, b in zip(slabs, slabs_cpu):
+            assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+    _, ids = gpu.search(torch.from_numpy(x[[1, 9000, 39000]]).to(dev), k=1)
+    assert np.asarray(ids)[:, 0].tolist() == [1, 9000, 39000]
