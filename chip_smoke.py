@@ -2291,6 +2291,8 @@ def _reset_counts():
         fn.launches = 0
         if hasattr(fn, "launches_by_hd"):
             fn.launches_by_hd = {}
+        if hasattr(fn, "long_launches"):
+            fn.long_launches, fn.long_launches_by_hd = 0, {}
     stream_scores_int8.penalty_launches = 0
 
 
@@ -3171,6 +3173,152 @@ def phase_train_profile(torch, dev):
     return {"ms_per_step": statistics.median(times), "profiled_wall_ms": wall, "device_ms": split}
 
 
+LONG_PRESET = "dfn5b-clip-vit-h-14-378"  # OpenCLIP ViT-H/14 at 378 px: 730 vision tokens at Hd 80
+LONG_CONFIG = "dfn5b-clip-vit-h14-378"  # its benchmark configuration file (bench_port/configs/)
+LONG_RAGGED = [(S, Hd) for S in (321, 577, 1025) for Hd in (64, 80)] + [(730, 32), (730, 104)]
+LONG_PHOTOS = 4  # 12 MP JPEGs for the preset's /scan
+LONG_EMB_MAX_REL = 0.05  # the scan cells' emb_rel_err limit (PERF.md): bf16 tower + int8 row vs f32 reference
+
+
+def long_key_kernels(torch, gen, dev):
+    """The long-key forward (B1, B1p, B7 past 320 keys) at H/14-378's vision
+    shape, S = 730 H = 16 Hd = 80: B = 160 (a scan batch) and B = 1 (an
+    upload) against the plain versions, timed beside SDPA; untimed at the
+    ragged lengths and the other head dims, causal and not. Each launch must
+    be counted as a long one."""
+    from image_search_tpu_torch.ops import attention as A
+
+    res = {}
+    l0 = A.fused_attention.long_launches
+    for core in ("grouped", "packed"):
+        res[core] = check_attention_fwd(torch, gen, dev, core, 160, 730, 16, Hd=80)
+    res["grouped_b1"] = check_attention_fwd(torch, gen, dev, "grouped", 1, 730, 16, Hd=80)
+    res["qkv_packed"] = check_qkv_packed(torch, gen, dev, 160, 730, 16, False, Hd=80)
+    check(A.fused_attention.long_launches > l0, "B1 at S=730 did not take the long-key kernel")
+    torch.cuda.empty_cache()
+    ragged = []
+    for S, Hd in LONG_RAGGED:
+        for causal in (False, True):
+            for core in ("grouped", "packed"):
+                ragged.append(check_attention_fwd(torch, gen, dev, core, 2, S, 4, causal, Hd=Hd, timed=False))
+            ragged.append(check_qkv_packed(torch, gen, dev, 2, S, 4, causal, Hd=Hd, timed=False))
+    err = max(r["max_abs_err"] for r in ragged)
+    print(f"long keys: B1, B1p, B7 at (S, Hd) in {LONG_RAGGED}, B=2 H=4, causal and not: max_abs_err={err} "
+          f"min_cos_vs_f32={min(r['min_cos'] for r in ragged)}")
+    for core in ("grouped", "packed", "qkv_packed"):
+        res[core]["ragged_max_abs_err"] = err
+    return res
+
+
+def long_key_server(torch, dev):
+    """The DFN5B ViT-H/14-378 preset served: a /scan of 12 MP JPEGs and one
+    /search_image, the stored rows and the upload's embedding against the
+    benchmark's plain f32 reference (``bench_port/reference/clip.py``, which
+    imports nothing of the program) on the engine's own weights."""
+    import numpy as np
+
+    from bench_port import gen_photos, model_config
+    from bench_port.reference import clip as ref_clip
+    from bench_port.reference.search import quantize
+    from image_search_tpu_torch.ingest.decode import decode_image_bytes
+    from image_search_tpu_torch.ops import attention as A
+
+    m = model_config.model(model_config.load(LONG_CONFIG))
+    L_v = m["vision"]["num_layers"] - 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        media = os.path.join(tmp, "photos")
+        shapes = gen_photos.sizes(LONG_PHOTOS, 4032, 3024, 0.25)
+        paths = gen_photos.write_pool(torch, 7, media, shapes, 4.0, 85, dev)
+        with _server_on(dev, LONG_PRESET, media, os.path.join(tmp, "index")) as (engine, base, k):
+            _reset_counts()
+            t0 = time.perf_counter()
+            st, body, _ = _http("GET", base + "/scan")
+            scan_s = time.perf_counter() - t0
+            check(st == 200 and body["embedded"] == LONG_PHOTOS, f"{LONG_PRESET} /scan answered {st} {body}")
+            scan_long = A.fused_attention.long_launches_by_hd.get(80, 0)
+            check(scan_long == L_v, f"{LONG_PRESET} /scan: {scan_long} long-key launches at Hd 80, want {L_v}")
+            stored = {p: engine.index.get_raw_embeddings([p])[0] for p in paths}
+            with open(paths[1], "rb") as f:
+                data = f.read()
+            _reset_counts()
+            st, img, img_ms = _http("POST", base + "/search_image", raw=data)
+            torch.cuda.synchronize()
+            check(st == 200, f"{LONG_PRESET} /search_image: status {st}")
+            img_long = A.fused_attention.long_launches_by_hd.get(80, 0)
+            check(img_long == L_v, f"{LONG_PRESET} /search_image: {img_long} long-key launches, want {L_v}")
+            check(img["images"][0]["image_path"] == engine.to_media_path(paths[1]),
+                  f"{LONG_PRESET} /search_image: not its own top hit")
+            upload = engine.embedder.embed_images_async([decode_image_bytes(data)], min_bucket=1)[:1].float()
+            state = {key: t.detach() for key, t in engine.embedder.model.state_dict().items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            px = torch.stack([ref_clip.preprocess(p, m["vision"]["image_size"]) for p in paths]).to(dev)
+            with torch.no_grad(), ref_clip.f32_exact():
+                raw = ref_clip.Clip(m, state).encode_image(px)
+            del state
+            norms = torch.linalg.vector_norm(raw, dim=-1, keepdim=True)
+            q, sc = quantize(raw / norms, 127)
+            want = (q * sc[:, None] * norms).cpu().numpy()
+            rel = lambda a, b: float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+            scan_err = max(rel(stored[p], want[i]) for i, p in enumerate(paths))
+            up = upload[0].cpu().numpy()
+            img_err = rel(up, raw[1].cpu().numpy())
+            check(scan_err < LONG_EMB_MAX_REL, f"{LONG_PRESET} /scan: emb_rel_err {scan_err} >= {LONG_EMB_MAX_REL}")
+            check(img_err < LONG_EMB_MAX_REL,
+                  f"{LONG_PRESET} /search_image: emb_rel_err {img_err} >= {LONG_EMB_MAX_REL}")
+    print(f"long keys server {LONG_PRESET}: /scan of {LONG_PHOTOS} 12 MP JPEGs {scan_s:.2f} s, emb_rel_err {scan_err}; "
+          f"/search_image {img_ms} ms, emb_rel_err {img_err}; long-key launches /scan {scan_long}, /search_image "
+          f"{img_long}; peak memory {peak:.2f} GiB")
+    return dict(scan_s=scan_s, scan_err=scan_err, search_image_ms=img_ms, image_err=img_err,
+                launches=scan_long + img_long, peak_gib=peak)
+
+
+def phase_long_keys(torch, gen, dev, smi):
+    """The long-key forward against its plain versions, and the preset that
+    needs it served end to end."""
+    print(smi)
+    return {"kernels": long_key_kernels(torch, gen, dev), "server": long_key_server(torch, dev)}
+
+
+def long_key_entries(long):
+    """The ``kernels`` line's entries of the long-key forward at Hd 80: B1 with
+    the launches of the DFN5B preset's served /scan + /search_image; B1p and
+    B7 timed at the same shape (no served route runs them past 320 keys)."""
+    res, rows = long["kernels"], []
+    for kernel, replaces, core, launches in (
+        ("fused_attention", "attention.py:665", "grouped", long["server"]["launches"]),
+        ("fused_attention_packed", "attention.py:29", "packed", 0),
+        ("fused_attention_qkv_packed", "attention.py:276", "qkv_packed", 0),
+    ):
+        err = max(res[core]["max_abs_err"], res[core]["ragged_max_abs_err"])
+        rows.append(entry(f"{kernel}_long_hd80", "attention_fwd_hd80.cu", replaces, launches, res[core], err))
+    return rows
+
+
+def ptxas_attention_long(log_path):
+    """ptxas's registers and spill bytes for each instantiation of the
+    long-key forward: [{Hd, norm_p, registers, spill_stores, spill_loads}]."""
+    import re
+
+    rows, cur = [], None
+    for line in open(log_path, errors="replace"):
+        m = re.search(r"Compiling entry function '_ZN8attn_fwd20attn_fwd_long_kernelILi(\d+)ELb(\d)E", line)
+        if m:
+            cur = {"Hd": int(m[1]), "norm_p": m[2] == "1"}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur |= {"spill_stores": int(m[1]), "spill_loads": int(m[2])}
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append(cur | {"registers": int(m[1])})
+            cur = None
+    return sorted(rows, key=lambda r: (r["Hd"], r["norm_p"]))
+
+
 def ptxas_attention(log_path):
     """The registers and spill bytes that ptxas reported (``-Xptxas -v``, in
     the build's nvcc.log) for each instantiation of the attention forward
@@ -3344,6 +3492,9 @@ def main() -> int:
         print(f"ptxas: attention forward Hd={row['Hd']} {'B1p/B6/B7' if row['norm_p'] else 'B1'} "
               f"key tiles={row['key_tiles']}: {row['registers']} registers, spill stores {row['spill_stores']} B, "
               f"spill loads {row['spill_loads']} B")
+    for row in ptxas_attention_long(lib_path.parent / "nvcc.log"):
+        print(f"ptxas: attention forward long-key Hd={row['Hd']} {'B1p/B7' if row['norm_p'] else 'B1'}: "
+              f"{row['registers']} registers, spill stores {row['spill_stores']} B, spill loads {row['spill_loads']} B")
     for row in ptxas_attention_bwd(lib_path.parent / "nvcc.log"):
         what = f"row pass key tiles={row['key_tiles']}" if row["pass"] == "rows" else "column pass"
         print(f"ptxas: attention backward (B5) Hd={row['Hd']} {what}{' probe' if row['probe'] else ''}: "
@@ -3366,6 +3517,8 @@ def main() -> int:
     lap("serving")
     ladder = phase_ladder(torch, gen, dev, smi)
     lap("ladder")
+    long = phase_long_keys(torch, gen, dev, smi)
+    lap("long keys")
     grad = phase_train_grad(torch, dev)
     ft = phase_finetune(torch, dev, smi)
     prof = phase_train_profile(torch, dev)
@@ -3417,6 +3570,7 @@ def main() -> int:
                         + sv_launches["normalize_rows_into"], kern),
         *ladder_entries(ladder),
         *new_head_dim_entries(kern["attention_bwd_hd"], ladder, train_ladder, learned),
+        *long_key_entries(long),
     ], "img_per_s": towers["img_per_s"],
         "route_img_per_s": {r: v["img_per_s"] for r, v in towers["routes"].items()},
         "fused_block_img_per_s": {r: v["img_per_s"] for r, v in towers["fused"].items()},

@@ -152,6 +152,23 @@ def openclip_vit_bigg14() -> CLIPConfig:
     )
 
 
+def dfn5b_clip_vit_h14_378() -> CLIPConfig:
+    """apple/DFN5B-CLIP-ViT-H-14-378 (OpenCLIP ``ViT-H-14-378-quickgelu``,
+    pretrained tag ``dfn5b``): H/14's widths and depths with quick-GELU in
+    both towers, at 378 px (27 x 27 patches + the class token = 730 vision
+    tokens, past the 320 keys of the short attention kernels: the vision
+    tower runs the long-key forward). The port's own preset: the JAX
+    package has none at this resolution."""
+    return CLIPConfig(
+        name="dfn5b-clip-vit-h-14-378",
+        text=TextConfig(hidden_size=1024, num_layers=24, num_heads=16, act="quick_gelu"),
+        vision=VisionConfig(
+            hidden_size=1280, num_layers=32, num_heads=16, act="quick_gelu", image_size=378, patch_size=14
+        ),
+        projection_dim=1024,
+    )
+
+
 def siglip_base_patch16_224() -> CLIPConfig:
     """google/siglip-base-patch16-224 (BASELINE config #5 stretch)."""
     return CLIPConfig(
@@ -203,6 +220,7 @@ PRESETS = {
     "clip-vit-base-patch16": clip_vit_b16,
     "openclip-vit-H-14": openclip_vit_h14,
     "openclip-vit-bigG-14": openclip_vit_bigg14,
+    "dfn5b-clip-vit-h-14-378": dfn5b_clip_vit_h14_378,
     "siglip-base-patch16-224": siglip_base_patch16_224,
     "clip-tiny-test": tiny_test_config,
 }

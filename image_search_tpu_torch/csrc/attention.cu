@@ -101,7 +101,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
            int head_dim, long long q_ld, long long k_ld, long long v_ld, long long o_ld,
            int n_keys, int s_main, int causal, float sm_scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || n_keys <= 0 || n_keys > S ||
-      s_main <= 0 || s_main > n_keys || (s_main < n_keys && s_main % 16) || key_tiles_for(n_keys) == 0)
+      s_main <= 0 || s_main > n_keys || (s_main < n_keys && s_main % 16) ||
+      (key_tiles_for(n_keys) == 0 && s_main != n_keys))  // the long-key kernel takes no split tail
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
@@ -124,7 +125,7 @@ extern "C" {
 
 // Dynamic shared memory the kernel needs when n_keys keys take part (the
 // wrapper checks it against the card's per-block limit before launching).
-size_t isx_attention_smem_bytes(int n_keys, int head_dim) { return attn_fwd::smem_bytes(n_keys, head_dim); }
+size_t isx_attention_smem_bytes(int n_keys, int head_dim) { return attn_fwd::fwd_smem_bytes(n_keys, head_dim); }
 
 // The softmax's division (div_rn, as B1p, B6, B7 and B5 take it) over n
 // pairs: out = x / y. For a test against the card's div.rn.f32.

@@ -18,6 +18,7 @@ import torch
 
 from image_search_tpu_torch.models.clip import CLIP, encode_image, encode_text
 from image_search_tpu_torch.ops.preprocess import fused_preprocess, pack_batch
+from image_search_tpu_torch.utils.metrics import span
 
 # Largest batch one dispatch embeds; bigger inputs split into sub-batches.
 # 160 is the TPU v5e optimum of the reference; the H100 value is still to be
@@ -83,19 +84,21 @@ class ClipEmbedder:
         return self._embed_one_batch(images, min_bucket)
 
     def _embed_one_batch(self, images: Sequence[np.ndarray], min_bucket: int = 8) -> torch.Tensor:
-        u8, A_h, A_w = pack_batch(images, size=self.cfg.vision.image_size, mode=self.preprocess_mode)
-        n = len(images)
-        B = _bucket_batch(n, min_bucket)
-        if B > n:  # pad batch; padded rows are discarded by the caller
-            pad = B - n
-            u8 = np.concatenate([u8, np.zeros((pad,) + u8.shape[1:], u8.dtype)])
-            A_h = np.concatenate([A_h, np.zeros((pad,) + A_h.shape[1:], A_h.dtype)])
-            A_w = np.concatenate([A_w, np.zeros((pad,) + A_w.shape[1:], A_w.dtype)])
+        with span("image.preprocess"):  # the resize matrices at the tower's image size, copies, fused preprocess
+            u8, A_h, A_w = pack_batch(images, size=self.cfg.vision.image_size, mode=self.preprocess_mode)
+            n = len(images)
+            B = _bucket_batch(n, min_bucket)
+            if B > n:  # pad batch; padded rows are discarded by the caller
+                pad = B - n
+                u8 = np.concatenate([u8, np.zeros((pad,) + u8.shape[1:], u8.dtype)])
+                A_h = np.concatenate([A_h, np.zeros((pad,) + A_h.shape[1:], A_h.dtype)])
+                A_w = np.concatenate([A_w, np.zeros((pad,) + A_w.shape[1:], A_w.dtype)])
+            with torch.inference_mode():
+                u8, A_h, A_w = (torch.from_numpy(a).to(self.device) for a in (u8, A_h, A_w))
+                pixels = fused_preprocess(
+                    u8, A_h, A_w, mode=self.preprocess_mode, out_dtype=self.compute_dtype
+                )
         with torch.inference_mode():
-            u8, A_h, A_w = (torch.from_numpy(a).to(self.device) for a in (u8, A_h, A_w))
-            pixels = fused_preprocess(
-                u8, A_h, A_w, mode=self.preprocess_mode, out_dtype=self.compute_dtype
-            )
             return encode_image(self.model, pixels)
 
     # -- text path -------------------------------------------------------------

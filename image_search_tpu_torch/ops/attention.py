@@ -65,7 +65,12 @@ NEG_INF = torch.finfo(torch.float32).min
 FWD_HEAD_DIMS = (32, 64, 80, 104)  # B1, B1p, B6, B7
 BWD_HEAD_DIMS = (32, 64, 80, 104)  # B5
 QKV_HEAD_DIMS = (64,)  # B8
-MAX_KEYS = 320  # csrc/attention_tc.cuh: kMaxKeyTiles = 20 key tiles of 16 held in registers
+# csrc/attention_tc.cuh: kMaxKeyTiles = 20 key tiles of 16 held in registers. Past it
+# the forward (B1, B1p, B7) takes the long-key kernel, which streams keys in blocks
+# of LONG_KEY_BLOCK (attention_fwd.cuh); B5, B6 and B8 raise there
+MAX_KEYS = 320
+LONG_KEY_BLOCK = 64
+_LOG2E = 1.4426950408889634  # the long-key kernel's exp(x) is the SFU's ex2(x * log2(e))
 _TAIL = 8  # the split kernels' tail block: Sp = s_main + 8
 
 
@@ -86,8 +91,64 @@ def _logits(q, k, causal: bool, sm_scale: float):
     return logits - logits.amax(dim=-1, keepdim=True)
 
 
+def attention_long_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0, normalize: bool = False):
+    """Plain long-key forward over [B, S, H, Hd] -> [B, S, H, Hd], S past
+    ``MAX_KEYS``: the rounding points of ``attn_fwd_long_kernel``.
+
+    Keys in blocks of ``LONG_KEY_BLOCK``; per block the f32 logits, the
+    running row max m = max(m, the block's max), alpha = exp(m_old - m), the
+    f32 sum rescaled by alpha and the block's exp(l - m) added. Every exp is
+    the kernel's, 2^(x * log2(e)) in f32 (its ex2 is within 2 ulp of this).
+    Without ``normalize`` (B1) the same pass rounds e = exp(l - m) to
+    q.dtype and accumulates P.V in f32 after rescaling the accumulator by
+    alpha; the output is the accumulator * (1 / sum). With ``normalize``
+    (B1p, B7) a second pass over the blocks divides exp(l - max) by the
+    row's whole sum in f32, rounds it to q.dtype and accumulates P.V
+    unscaled.
+    """
+    dtype = q.dtype
+    B, S, H, Hd = q.shape
+    qa, ka, va = _acc(q), _acc(k), _acc(v)
+    rows = torch.arange(S, device=q.device)[:, None]
+
+    def logits(j0):
+        l = torch.einsum("bqhd,bkhd->bhqk", qa, ka[:, j0 : j0 + LONG_KEY_BLOCK]) * sm_scale
+        if causal:
+            keys = torch.arange(j0, j0 + l.shape[-1], device=q.device)[None, :]
+            l = l.masked_fill(keys > rows, NEG_INF)
+        return l
+
+    def exp(x):
+        return torch.exp2(x * _LOG2E)
+
+    def pv(p, j0):
+        return torch.einsum("bhqk,bkhd->bhqd", _acc(p.to(dtype)), va[:, j0 : j0 + LONG_KEY_BLOCK])
+
+    m = torch.full((B, H, S, 1), NEG_INF, dtype=qa.dtype, device=q.device)
+    total = torch.zeros((B, H, S, 1), dtype=qa.dtype, device=q.device)
+    acc = torch.zeros((B, H, S, Hd), dtype=qa.dtype, device=q.device)
+    for j0 in range(0, S, LONG_KEY_BLOCK):
+        l = logits(j0)
+        m_new = torch.maximum(m, l.amax(dim=-1, keepdim=True))
+        alpha = exp(m - m_new)
+        e = exp(l - m_new)
+        total = total * alpha + e.sum(dim=-1, keepdim=True)
+        if not normalize:
+            acc = acc * alpha + pv(e, j0)
+        m = m_new
+    if normalize:
+        for j0 in range(0, S, LONG_KEY_BLOCK):
+            acc = acc + pv(exp(logits(j0) - m) / total, j0)
+    else:
+        acc = acc * (1.0 / total)
+    return acc.to(dtype).permute(0, 2, 1, 3)
+
+
 def attention_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
-    """Plain attention over [B, S, H, Hd] -> [B, S, H, Hd] (output in q.dtype)."""
+    """Plain attention over [B, S, H, Hd] -> [B, S, H, Hd] (output in q.dtype);
+    past ``MAX_KEYS`` keys, the long-key kernel's (:func:`attention_long_reference`)."""
+    if q.shape[1] > MAX_KEYS:
+        return attention_long_reference(q, k, v, causal, sm_scale)
     dtype = q.dtype
     p32 = torch.exp(_logits(q, k, causal, sm_scale))
     recip = 1.0 / p32.sum(dim=-1, keepdim=True)
@@ -97,7 +158,11 @@ def attention_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
 
 def attention_packed_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
     """Plain B1p over [B, S, H, Hd] -> [B, S, H, Hd]: p = exp(l - max) / sum in
-    f32, THEN rounded to q.dtype, PV accumulated in f32 (``_attn_kernel``)."""
+    f32, THEN rounded to q.dtype, PV accumulated in f32 (``_attn_kernel``);
+    past ``MAX_KEYS`` keys, the long-key kernel's two passes
+    (:func:`attention_long_reference`)."""
+    if q.shape[1] > MAX_KEYS:
+        return attention_long_reference(q, k, v, causal, sm_scale, normalize=True)
     dtype = q.dtype
     p32 = torch.exp(_logits(q, k, causal, sm_scale))
     p = (p32 / p32.sum(dim=-1, keepdim=True)).to(dtype)
@@ -199,7 +264,7 @@ def _check_head_dim(what: str, D: int, heads: int, built) -> None:
         )
 
 
-def _check_cuda_operands(heads, q, k, v, *more, built=FWD_HEAD_DIMS, what="attention kernel"):
+def _check_cuda_operands(heads, q, k, v, *more, built=FWD_HEAD_DIMS, what="attention kernel", long_keys=True):
     B, S, DH = q.shape
     for name, t in (("q", q), ("k", k), ("v", v), *(("g", t) for t in more)):
         if t.device != q.device or t.dtype != torch.bfloat16:
@@ -212,10 +277,10 @@ def _check_cuda_operands(heads, q, k, v, *more, built=FWD_HEAD_DIMS, what="atten
                 f"strides {t.stride()}"
             )
     _check_head_dim(what, DH, heads, built)
-    if S > MAX_KEYS:
+    if S > MAX_KEYS and not long_keys:
         raise NotImplementedError(
-            f"attention kernel: S={S} > {MAX_KEYS}: a row's logits live in registers "
-            f"(every sequence the towers run has at most 264 keys)"
+            f"{what}: S={S} > {MAX_KEYS}: it stages a head's whole sequence "
+            f"(the forward has a long-key kernel; ROADMAP F lists the backward's)"
         )
 
 
@@ -225,13 +290,25 @@ def _check_smem(device, smem: int, S: int) -> None:
         raise ValueError(f"attention kernel: S={S} needs {smem} B of shared memory > {limit}")
 
 
-def _count(fn, Hd: int) -> None:
+def _count(fn, Hd: int, n_keys: int = 0) -> None:
     """One launch of ``fn``'s kernel: ``fn.launches`` counts every head dim,
-    ``fn.launches_by_hd[Hd]`` the launches at ``Hd``."""
+    ``fn.launches_by_hd[Hd]`` the launches at ``Hd``; a launch past
+    ``MAX_KEYS`` keys (the long-key kernel) also counts in
+    ``fn.long_launches`` and ``fn.long_launches_by_hd``."""
     fn.launches += 1
     fn.launches_by_hd[Hd] = fn.launches_by_hd.get(Hd, 0) + 1
+    if n_keys > MAX_KEYS:
+        fn.long_launches += 1
+        fn.long_launches_by_hd[Hd] = fn.long_launches_by_hd.get(Hd, 0) + 1
 
 
+def _counted(fn):
+    """``fn`` with its launch counters at zero (:func:`_count`)."""
+    fn.launches, fn.launches_by_hd, fn.long_launches, fn.long_launches_by_hd = 0, {}, 0, {}
+    return fn
+
+
+@_counted
 def fused_attention(q, k, v, heads: int, causal: bool = False, sm_scale: float = 1.0):
     """Attention over the packed layout [B, S, H*Hd] -> [B, S, H*Hd].
 
@@ -259,12 +336,8 @@ def fused_attention(q, k, v, heads: int, causal: bool = False, sm_scale: float =
         int(causal), float(sm_scale), _build.stream_handle(q.device),
     )
     _build.check(rc, "attention kernel launch")
-    _count(fused_attention, Hd)
+    _count(fused_attention, Hd, S)
     return out
-
-
-fused_attention.launches = 0
-fused_attention.launches_by_hd = {}
 
 
 def _heads(t, heads: int):
@@ -274,9 +347,14 @@ def _heads(t, heads: int):
 
 def _launch_normalized(q, k, v, heads: int, causal: bool, sm_scale: float, n_keys: int, s_main: int):
     """B1p's and B6's kernel (``isx_attention_fwd_normalized``): every row of
-    q over keys [0, n_keys), PV summed over [0, s_main) and then the rest."""
+    q over keys [0, n_keys), PV summed over [0, s_main) and then the rest.
+    The long-key kernel takes no split tail: B6 past ``MAX_KEYS`` raises."""
     B, S, DH = q.shape
     _check_cuda_operands(heads, q, k, v)
+    if n_keys > MAX_KEYS and s_main < n_keys:
+        raise NotImplementedError(
+            f"split attention kernel: {n_keys} keys > {MAX_KEYS}: the long-key kernel has no split tail"
+        )
     lib = _build.lib()
     Hd = DH // heads
     _check_smem(q.device, lib.isx_attention_smem_bytes(n_keys, Hd), S)
@@ -290,6 +368,7 @@ def _launch_normalized(q, k, v, heads: int, causal: bool, sm_scale: float, n_key
     return out
 
 
+@_counted
 def fused_attention_packed(q, k, v, heads: int, causal: bool = False, sm_scale: float = 1.0):
     """B1p: attention over the packed layout [B, S, H*Hd] with p normalised
     before the bf16 cast. Operands as for :func:`fused_attention`."""
@@ -300,14 +379,11 @@ def fused_attention_packed(q, k, v, heads: int, causal: bool = False, sm_scale: 
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_packed: no route for device {q.device}")
     out = _launch_normalized(q, k, v, heads, causal, sm_scale, S, S)
-    _count(fused_attention_packed, DH // heads)
+    _count(fused_attention_packed, DH // heads, S)
     return out
 
 
-fused_attention_packed.launches = 0
-fused_attention_packed.launches_by_hd = {}
-
-
+@_counted
 def fused_attention_split(q, k, v, heads: int, sm_scale: float = 1.0):
     """B6 on unpadded operands [B, S, H*Hd], S in :func:`split_regime`
     (non-causal) -> [B, S, H*Hd].
@@ -336,10 +412,7 @@ def fused_attention_split(q, k, v, heads: int, sm_scale: float = 1.0):
     return out
 
 
-fused_attention_split.launches = 0
-fused_attention_split.launches_by_hd = {}
-
-
+@_counted
 def fused_attention_split_padded(qp, kp, vp, heads: int, s_real: int, sm_scale: float = 1.0):
     """B6 on operands already padded to Sp = (s_real//128)*128 + 8 rows
     [B, Sp, H*Hd] (non-causal) -> [B, Sp, H*Hd]: keys >= s_real are masked
@@ -361,10 +434,7 @@ def fused_attention_split_padded(qp, kp, vp, heads: int, s_real: int, sm_scale: 
     return out
 
 
-fused_attention_split_padded.launches = 0
-fused_attention_split_padded.launches_by_hd = {}
-
-
+@_counted
 def fused_attention_bwd(q, k, v, g, heads: int, causal: bool = False, sm_scale: float = 1.0):
     """(dq, dk, dv) of :func:`fused_attention` over the packed [B, S, H*Hd]
     layout, from the output cotangent ``g``; each a new contiguous tensor in
@@ -374,7 +444,7 @@ def fused_attention_bwd(q, k, v, g, heads: int, causal: bool = False, sm_scale: 
         return attention_bwd_reference(q, k, v, g, heads, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd: no route for device {q.device}")
-    _check_cuda_operands(heads, q, k, v, g, built=BWD_HEAD_DIMS, what="attention backward kernel")
+    _check_cuda_operands(heads, q, k, v, g, built=BWD_HEAD_DIMS, what="attention backward kernel", long_keys=False)
     lib = _build.lib()
     Hd = DH // heads
     _check_smem(q.device, lib.isx_attention_bwd_smem_bytes(S, Hd), S)
@@ -389,10 +459,6 @@ def fused_attention_bwd(q, k, v, g, heads: int, causal: bool = False, sm_scale: 
     _build.check(rc, "attention backward kernel launch")
     _count(fused_attention_bwd, Hd)
     return dq, dk, dv
-
-
-fused_attention_bwd.launches = 0
-fused_attention_bwd.launches_by_hd = {}
 
 
 class AttentionCore(torch.autograd.Function):
@@ -442,6 +508,7 @@ def attention_qkv_packed_reference(qkv, heads: int, causal: bool = False, sm_sca
     return attention_packed_reference(q, k, v, causal, sm_scale).reshape(B, S, D3 // 3)
 
 
+@_counted
 def fused_attention_qkv_packed(qkv, heads: int, causal: bool = False, sm_scale: float = 1.0):
     """B7: attention over the three column blocks [q | k | v] of one packed
     qkv [B, S, 3*H*Hd] -> [B, S, H*Hd], q unscaled: the f32 logits are
@@ -455,12 +522,8 @@ def fused_attention_qkv_packed(qkv, heads: int, causal: bool = False, sm_scale: 
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_attention_qkv_packed: no route for device {qkv.device}")
     out = _launch_normalized(*_qkv_views(qkv), heads, causal, sm_scale, S, S)
-    _count(fused_attention_qkv_packed, D3 // 3 // heads)
+    _count(fused_attention_qkv_packed, D3 // 3 // heads, S)
     return out
-
-
-fused_attention_qkv_packed.launches = 0
-fused_attention_qkv_packed.launches_by_hd = {}
 
 
 class AttentionQkvPackedCore(torch.autograd.Function):

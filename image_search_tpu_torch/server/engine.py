@@ -230,7 +230,8 @@ class SearchEngine:
         feedback with ``referenced_images``). ValueError on undecodable
         bytes."""
         k = k or self.args.k
-        arr = decode_image_bytes(image_bytes)
+        with span("image.decode"):
+            arr = decode_image_bytes(image_bytes)
         if arr is None:
             raise ValueError("could not decode query image")
         with global_metrics.timer("image_embed"):

@@ -220,6 +220,53 @@ def test_kernels_line_lists_the_new_head_dims():
         assert set(r) >= {"route", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
 
+def test_kernels_line_lists_the_long_key_entries():
+    """``long_key_entries``: B1, B1p and B7 past 320 keys at Hd 80, B1 with
+    the served preset's launches, each from the Hd 80 source and naming the
+    Pallas body whose function it computes."""
+    mod = _load()
+    row = lambda err: dict(max_abs_err=err, ms=1.0, plain_ms=2.0, bound_ms=0.1, bound_by="operations", library_ms=0.5,
+                           shape="s", ragged_max_abs_err=err / 2)
+    long = {"kernels": {"grouped": row(0.1), "packed": row(0.2), "qkv_packed": row(0.3)}, "server": {"launches": 62}}
+    got = {r["name"]: (r["launches"], r["max_abs_err"], os.path.basename(r["source"]), r["replaces"])
+           for r in mod.long_key_entries(long)}
+    assert got == {
+        "fused_attention_long_hd80": (62, 0.1, "attention_fwd_hd80.cu", "image_search_tpu/ops/attention.py:665"),
+        "fused_attention_packed_long_hd80": (0, 0.2, "attention_fwd_hd80.cu", "image_search_tpu/ops/attention.py:29"),
+        "fused_attention_qkv_packed_long_hd80": (0, 0.3, "attention_fwd_hd80.cu",
+                                                 "image_search_tpu/ops/attention.py:276"),
+    }
+
+
+def test_long_key_launches_are_counted_and_reset(monkeypatch):
+    """A launch past 320 keys counts in ``long_launches`` beside
+    ``launches``; the smoke's reset clears both."""
+    from image_search_tpu_torch.ops import attention
+
+    mod = _load()
+    fn = attention.fused_attention
+    for name, value in (("launches", 0), ("launches_by_hd", {}), ("long_launches", 0), ("long_launches_by_hd", {})):
+        monkeypatch.setattr(fn, name, value)
+    attention._count(fn, 80, 730)
+    attention._count(fn, 80, 320)
+    assert (fn.launches, fn.long_launches, fn.long_launches_by_hd) == (2, 1, {80: 1})
+    mod._reset_counts()
+    assert (fn.launches, fn.long_launches, fn.long_launches_by_hd) == (0, 0, {})
+
+
+def test_ptxas_lines_of_the_long_key_kernel_are_read(tmp_path):
+    log = tmp_path / "nvcc.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN8attn_fwd20attn_fwd_long_kernelILi80ELb1EEEvPK13__nv_bfloat16' "
+        "for 'sm_90a'\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN8attn_fwd15attn_fwd_kernelILi80ELb0ELi17EEEv' for 'sm_90a'\n"
+        "ptxas info    : Used 255 registers\n")
+    assert _load().ptxas_attention_long(log) == [
+        {"Hd": 80, "norm_p": True, "spill_stores": 8, "spill_loads": 16, "registers": 128}]
+
+
 def test_b5_launches_per_train_step_follow_the_towers():
     """B5 runs once in every layer's attention core but each tower's
     CLS/EOS-only last one, and in every layer under remat: by head dim, the

@@ -1357,3 +1357,88 @@ def test_cuda_index_appends_bitwise_the_cpu_index(dev, quantize, chunk, monkeypa
             assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
     _, ids = gpu.search(torch.from_numpy(x[[1, 9000, 39000]]).to(dev), k=1)
     assert np.asarray(ids)[:, 0].tolist() == [1, 9000, 39000]
+
+
+# ---- the long-key forward (S past MAX_KEYS = 320: OpenCLIP ViT-H/14 at 378 px has 730 tokens) ----
+
+LONG_CASES = [(S, Hd) for S in (321, 577, 730, 1025) for Hd in (64, 80)] + [(730, 32), (730, 104)]
+
+
+def _long_forward(core, q, k, v, H, causal):
+    if core == "qkv_packed":
+        return attn.fused_attention_qkv_packed(torch.cat([q, k, v], dim=-1), H, causal)
+    return _forward(core, q, k, v, H, causal)
+
+
+def _long_plain(core, q, k, v, H, causal):
+    return _forward_plain("grouped" if core == "grouped" else "packed", q, k, v, H, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,Hd", LONG_CASES)
+@pytest.mark.parametrize("core", ["grouped", "packed"])
+def test_long_key_kernel_matches_plain(dev, core, S, Hd, causal):
+    """B1 and B1p past 320 keys (the long-key kernel, both rounding modes)
+    against their plain versions, which follow its rounding points
+    (``attention_long_reference``): every row written (the output starts as
+    NaN), within the short kernels' bounds (``_close_to_plain``: the same
+    bf16 rounding of p and of the output, f32 sums in another order)."""
+    B, H = 2, 4
+    q, k, v = _tower_qkv(dev, B, S, H, _seed(11 * S + causal, Hd), Hd)
+    torch.empty(B * S * H * Hd * 4, device=dev, dtype=torch.bfloat16).fill_(float("nan"))  # poison the allocator
+    fn = fused_attention if core == "grouped" else attn.fused_attention_packed
+    n0 = fn.long_launches_by_hd.get(Hd, 0)
+    got = _long_forward(core, q, k, v, H, causal)
+    torch.cuda.synchronize()
+    assert fn.long_launches_by_hd[Hd] == n0 + 1
+    assert torch.isfinite(got.float()).all()
+    want = _long_plain(core, q, k, v, H, causal)
+    want32 = _long_plain(core, q.float(), k.float(), v.float(), H, causal)
+    _close_to_plain(got, want, want32, Hd)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B", [1, 160])
+@pytest.mark.parametrize("core", ["grouped", "packed", "qkv_packed"])
+def test_long_key_kernel_at_the_vision_shape(dev, core, B, causal):
+    """S = 730, H = 16, Hd = 80 (OpenCLIP ViT-H/14 at 378 px): B = 1 (a
+    /search_image upload, 4 warps a CTA) and B = 160 (a scan batch, 8)."""
+    S, H, Hd = 730, 16, 80
+    q, k, v = _tower_qkv(dev, B, S, H, _seed(B + 7 * causal, Hd), Hd)
+    got = _long_forward(core, q, k, v, H, causal)
+    torch.cuda.synchronize()
+    want = _long_plain(core, q, k, v, H, causal)
+    want32 = _long_plain(core, q.float(), k.float(), v.float(), H, causal)
+    _close_to_plain(got, want, want32, Hd)
+
+
+@pytest.mark.parametrize("core", ["grouped", "packed", "qkv_packed"])
+def test_long_key_kernel_only_past_320_keys(dev, core):
+    """S <= 320 takes the short kernels (the long-key counters stay still),
+    S = 321 the long-key kernel; both count as launches of their entry."""
+    fn = {"grouped": fused_attention, "packed": attn.fused_attention_packed,
+          "qkv_packed": attn.fused_attention_qkv_packed}[core]
+    for S, long_step in ((77, 0), (257, 0), (320, 0), (321, 1)):
+        q, k, v = _tower_qkv(dev, 2, S, 4, S)
+        n0, l0 = fn.launches, fn.long_launches
+        _long_forward(core, q, k, v, 4, False)
+        torch.cuda.synchronize()
+        assert (fn.launches - n0, fn.long_launches - l0) == (1, long_step), (core, S)
+
+
+def test_long_key_path_raises_where_it_has_no_kernel(dev):
+    """B5 and B6 stage the whole sequence: past 320 keys they raise."""
+    z = lambda S: torch.zeros(1, S, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="S=321"):
+        fused_attention_bwd(z(321), z(321), z(321), z(321), 2)
+    with pytest.raises(NotImplementedError, match="split tail"):
+        attn.fused_attention_split(z(385), z(385), z(385), 2)  # s_main 384, in the split regime
+
+
+def test_long_key_kernel_gives_the_same_bits_on_every_run(dev):
+    q, k, v = _tower_qkv(dev, 3, 730, 16, 5, 80)
+    for core in ("grouped", "packed"):
+        a = _forward(core, q, k, v, 16, False)
+        b = _forward(core, q, k, v, 16, False)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), core

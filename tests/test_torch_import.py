@@ -83,7 +83,9 @@ def _copy_config():
     from image_search_tpu import config as ref
     from image_search_tpu_torch import config as port
 
-    assert set(port.PRESETS) == set(ref.PRESETS) and "clip-vit-large-patch14" in ref.PRESETS
+    # every JAX preset is in the port; the port's own are exactly the ones it alone serves
+    assert set(ref.PRESETS) <= set(port.PRESETS) and "clip-vit-large-patch14" in ref.PRESETS
+    assert set(port.PRESETS) - set(ref.PRESETS) == {"dfn5b-clip-vit-h-14-378"}
     for name in ref.PRESETS:
         assert dataclasses.asdict(port.get_config(name)) == dataclasses.asdict(ref.get_config(name))
         assert port.CLIPConfig.from_json(ref.get_config(name).to_json()).to_json() == ref.get_config(name).to_json()

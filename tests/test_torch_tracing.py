@@ -13,6 +13,7 @@ import json
 import os
 import threading
 import time
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -179,3 +180,37 @@ def test_text_embed_timer_is_gone_and_metrics_keep_their_keys(server):
     assert "text_embed" not in snap["latencies"] and "index_search" in snap["latencies"]
     assert snap["counters"]["search_queue_waits"] >= n0 + 1
     assert snap["counters"]["search_queue_wait_s"] >= wait0
+
+
+IMAGE_SPANS = ["image.decode", "image_embed", "image.preprocess", "index_search"]
+
+
+def _post_image(base, data, refs=()):
+    query = urllib.parse.urlencode([("k", 4)] + [("ref", r) for r in refs])
+    req = urllib.request.Request(base + "/search_image?" + query, data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read()
+
+
+def test_one_image_query_records_its_spans(server):
+    """One /search_image with a mark under the profiler: the upload's decode,
+    the tower's launch (the image_embed timer) with the preprocess inside it,
+    and the index search, each once on the handler's thread, in that order;
+    the image_searches counter moves by one, and the answer is the bytes of
+    the same request with no profiler."""
+    engine, base = server
+    with open(sorted(engine.index.paths)[2], "rb") as f:
+        data = f.read()
+    marked = [engine.search("an image probe")[1]["image_path"]]
+    plain = _post_image(base, data, marked)
+    before = global_metrics.snapshot()["counters"].get("image_searches", 0.0)
+    (status, body), ranges = _profiled(lambda: _post_image(base, data, marked))
+    assert status == 200 and (status, body) == plain
+    assert global_metrics.snapshot()["counters"]["image_searches"] == before + 1
+    names = [r[0] for r in ranges]
+    for name in IMAGE_SPANS:
+        assert names.count(name) == 1, (name, names)
+    at = {r[0]: r for r in ranges}
+    assert len({at[n][1] for n in IMAGE_SPANS}) == 1
+    assert at["image.decode"][3] <= at["image_embed"][2] and at["image_embed"][3] <= at["index_search"][2]
+    assert at["image_embed"][2] <= at["image.preprocess"][2] and at["image.preprocess"][3] <= at["image_embed"][3]
