@@ -1,16 +1,25 @@
-"""``POST /search`` under open-loop load over a corpus made from the seed.
+"""``POST /search`` under open- or closed-loop load over a corpus made from the seed.
 
 Set-up: the engine on the configuration's flags and the harness's weights;
 the corpus made on the device block by block and loaded through
 ``VectorIndex.add`` with the index's store detached (rows restored at
 server start are never rewritten to it); ``make_server`` with its batcher,
 whose own warm-up (``warm_serving_buckets``) is waited for; then the
-schedule's warm-up phase of the same traffic, so the window starts on a
-server in its steady state. The window: every request due in it, sent by
+traffic's warm-up phase, so the window starts on a server in its steady
+state. The window, open loop: every request due in it, sent by
 ``loadgen.py`` (a process of its own) at its due time; latency counts from
-the due time, and a failed request is infinitely slow. After the window
-closes and every answer is in, the peak memory is read, the server and the
-engine are freed, and the reference answers the sampled requests.
+the due time, and a failed request is infinitely slow; ``searches_per_s``.
+Closed loop (a mix with ``sessions``, ``ClosedLoad``): the sessions each
+send their next request when the last is answered
+(``loadgen_closed.py``); ``saturated_searches_per_s`` counts the answers
+with status 200 that arrive inside the window, over its seconds. After
+the window closes and every answer is in, the peak memory is read, the
+server and the engine are freed, and the reference answers the sampled
+requests.
+
+Traced runs also record, for the readers: the program's spans
+(``bench_port/spans.py``), and around ``engine.search_many`` and B2 the
+harness's own (``_Spans``).
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import sys
 import threading
 import time
 
-from bench_port import gen_corpus, gen_search, harness, weights
+from bench_port import gen_corpus, gen_photo_query, gen_search, gen_sessions, harness, spans, weights
 from bench_port.drivers import common
 from bench_port.reference import search as ref_search
 from bench_port.trace import Tracer
@@ -121,35 +130,37 @@ class Serving:
         self.serve.start()
         common.join_threads("serving-warmup")
 
-    def window(self, reqs: list, keep: list, seconds: float, trace: bool, tag: str = "load") -> dict:
-        """One open-loop run of ``reqs`` (its warm-up phase, then the window
-        of ``seconds``) -> the answers, counter snapshots at the window's
-        ends, the trace summary and spans, and the set-up's end."""
+    def window(self, load, seconds: float, trace: bool, tag: str = "load") -> dict:
+        """One run of ``load`` (``load_of``'s: its warm-up phase, then the
+        window of ``seconds``) -> the answers, counter snapshots at the
+        window's ends, the trace summary and spans, this process's CPU
+        seconds in the window, and the set-up's end."""
         from image_search_tpu_torch.utils.metrics import global_metrics
 
         torch, tmp = self.torch, self.cell.tmp
         spec_path, out_path = os.path.join(tmp, f"{tag}.json"), os.path.join(tmp, f"{tag}.answers.json")
-        spans = _Spans(torch, self.engine) if trace else None
+        harness_spans = _Spans(torch, self.engine) if trace else None
         tracer = Tracer(torch, trace)
         t = time.perf_counter()
         tracer.start()  # before the load is scheduled: starting the profiler can take seconds
         if trace:
             print(f"search: the profiler took {time.perf_counter() - t} s to start", file=sys.stderr)
-        t0 = time.monotonic() + 1.0 - min(0.0, min(r["at"] for r in reqs))
+        t0 = time.monotonic() + 1.0 + load.lead_s()
         with open(spec_path, "w") as f:
-            json.dump({"port": self.srv.server_port, "t0": t0, "k": self.args.k, "requests": reqs, "keep": keep}, f)
-        loadgen = subprocess.Popen([sys.executable, os.path.join(harness.HERE, "loadgen.py"), spec_path, out_path])
+            json.dump({"port": self.srv.server_port, "t0": t0, "seconds": seconds, "k": self.args.k} | load.spec(), f)
+        loadgen = subprocess.Popen([sys.executable, os.path.join(harness.HERE, load.script), spec_path, out_path])
         self._pin(loadgen.pid)
         try:
             time.sleep(max(0.0, t0 - time.monotonic()))
             setup_end = time.perf_counter()
-            before = global_metrics.snapshot()
-            if spans:
-                spans.on = True
+            before, cpu0 = global_metrics.snapshot(), cpu_s()
+            if harness_spans:
+                harness_spans.on = True
             with tracer.window():
                 time.sleep(max(0.0, t0 + seconds - time.monotonic()))
-            if spans:
-                spans.on = False
+            cpu1 = cpu_s()
+            if harness_spans:
+                harness_spans.on = False
             loadgen.wait(timeout=seconds + 120)
             after = global_metrics.snapshot()
             tracer.stop()
@@ -157,12 +168,13 @@ class Serving:
             if loadgen.poll() is None:
                 loadgen.kill()
                 loadgen.wait()
-            if spans:
-                spans.restore()
+            if harness_spans:
+                harness_spans.restore()
         with open(out_path) as f:
             answers = json.load(f)
         return {"answers": answers, "before": before, "after": after, "summary": tracer.summary(),
-                "calls": spans.calls if spans else [], "b2": spans.b2 if spans else [], "setup_end": setup_end}
+                "spans": span_record(tracer), "calls": harness_spans.calls if harness_spans else [],
+                "b2": harness_spans.b2 if harness_spans else [], "cpu_s": cpu1 - cpu0, "setup_end": setup_end}
 
     def _pin(self, pid: int) -> None:
         """The load generator on the last CPU, every thread of this process
@@ -183,6 +195,96 @@ class Serving:
         self.serve.join(30)
         del self.engine, self.srv
         common.free(self.torch, self.cell.device)
+
+
+class OpenLoad:
+    """Open loop: every request due at a time fixed before the run (the
+    kind's ``schedule``), sent then by the kind's load generator whatever
+    the earlier ones are doing; ``searches_per_s``."""
+
+    metric = "searches_per_s"
+
+    def __init__(self, requests: list, keep: list, script: str):
+        self.requests, self.keep, self.script = requests, keep, script
+
+    def spec(self) -> dict:
+        return {"requests": self.requests, "keep": self.keep}
+
+    def lead_s(self) -> float:
+        """Seconds of traffic before the window: its warm-up phase."""
+        return -min(0.0, min(r["at"] for r in self.requests))
+
+    def seen(self, answers: dict, seconds: float, server_cpu_s: float) -> dict:
+        """What the client saw: the requests sent and the sampled ones, the
+        rate, ms a request from due to answered (inf when failed) and from
+        due to sent, and the requests attempted and failed."""
+        lat, late = latencies(self.requests, answers["rows"])
+        return {"reqs": self.requests, "keep": self.keep, "per_s": rate(self.requests, answers["rows"]), "lat": lat,
+                "late": late, "attempted": len(lat), "failed": sum(1 for x in lat if math.isinf(x)), "note": None}
+
+
+class ClosedLoad:
+    """Closed loop (``gen_sessions``): the mix's sessions each send their
+    next request the moment the last is answered (``loadgen_closed.py``);
+    ``saturated_searches_per_s``. Every request sent is attempted, and one
+    never answered has failed."""
+
+    metric = "saturated_searches_per_s"
+    script = "loadgen_closed.py"
+
+    def __init__(self, mix: dict, seed: int):
+        self.mix, self.seed = mix, seed
+
+    def spec(self) -> dict:
+        return {"mix": self.mix, "seed": self.seed, "keep": gen_sessions.check_caps(self.mix)}
+
+    def lead_s(self) -> float:
+        return float(self.mix["warmup_s"])
+
+    def seen(self, answers: dict, seconds: float, server_cpu_s: float) -> dict:
+        rows, client = answers["rows"], answers["client"]
+        lat = [(r[2] - r[0]) * 1e3 for r in rows if r and r[3] == 200 and 0 <= r[2] < seconds]
+        note = (f"load generator: {client['cpu_s']} CPU s in the {client['seconds']} s window, event-loop lag "
+                f"p50 {client['lag_ms']['p50']} ms, p99 {client['lag_ms']['p99']} ms, max {client['lag_ms']['max']} "
+                f"ms over {client['ticks']} ticks; server process {server_cpu_s} CPU s")
+        return {"reqs": answers["requests"], "keep": sorted(int(i) for i in answers["kept"]),
+                "per_s": saturated_rate(rows, seconds), "lat": lat, "late": [], "attempted": len(rows),
+                "failed": sum(1 for r in rows if not r or r[3] != 200), "note": note}
+
+
+OPEN = {"search": (gen_search, "loadgen.py"), "search_image": (gen_photo_query, "loadgen_photo.py")}
+
+
+def load_of(mix: dict, seed: int, seconds: float):
+    """The load a traffic mix asks for: a closed loop where it names
+    ``sessions``, else the open loop of its kind."""
+    if mix.get("sessions"):
+        return ClosedLoad(mix, seed)
+    maker, script = OPEN[mix["kind"]]
+    reqs = maker.schedule(mix, seed, seconds)
+    return OpenLoad(reqs, maker.check_sample(reqs, seed, mix["check_requests"]), script)
+
+
+def span_record(tracer):
+    """The program's spans over a traced window (``bench_port/spans.py``),
+    or None."""
+    if tracer.prof is None or tracer.bounds is None:
+        return None
+    record = spans.record(tracer.prof.profiler.kineto_results.events(), *tracer.bounds)
+    print(spans.describe(record), file=sys.stderr)
+    return record
+
+
+def cpu_s() -> float:
+    """This process's CPU seconds so far, user and system, every thread."""
+    t = os.times()
+    return t.user + t.system
+
+
+def saturated_rate(rows: list, seconds: float) -> float:
+    """Closed loop: answers with status 200 that arrived inside the window,
+    over its seconds; those in flight at its close do not count."""
+    return sum(1 for r in rows if r and r[3] == 200 and 0 <= r[2] < seconds) / seconds
 
 
 def rate(reqs: list, rows: list) -> float:
@@ -207,34 +309,35 @@ def run(cell: common.Cell) -> harness.Result:
 
     mix, device = cell.mix, cell.device
     serving = Serving(torch, cell)
-    reqs = gen_search.schedule(mix, cell.seed, cell.seconds)
-    keep = gen_search.check_sample(reqs, cell.seed, mix["check_requests"])
-    out = serving.window(reqs, keep, cell.seconds, cell.trace)
+    load = load_of(mix, cell.seed, cell.seconds)
+    out = serving.window(load, cell.seconds, cell.trace)
     setup_s = out["setup_end"] - cell.start
     summary = out["summary"]
     peak = common.peak_bytes(torch, device)
     k, load_s = serving.args.k, serving.load_s
     serving.close()
-    lat, late = latencies(reqs, out["answers"]["rows"])
-    per_s = rate(reqs, out["answers"]["rows"])
-    failed = sum(1 for x in lat if math.isinf(x))
+    seen = load.seen(out["answers"], cell.seconds, out["cpu_s"])
+    reqs, keep, lat, late, failed = seen["reqs"], seen["keep"], seen["lat"], seen["late"], seen["failed"]
     half = len(lat) // 2
     p50, p95 = (_quantile(lat, 0.5), _quantile(lat, 0.95)) if lat else (None, None)
-    print(f"search: {per_s} searches/s; from the due time p50 {p50} ms, p95 {p95} ms", file=sys.stderr)
+    print(f"search: {seen['per_s']} searches/s ({load.metric}); from the due time p50 {p50} ms, p95 {p95} ms",
+          file=sys.stderr)
     print(f"search: p95 of the window's first half {_quantile(lat[:half], 0.95) if half else 0.0} ms, of its second "
           f"{_quantile(lat[half:], 0.95) if lat else 0.0} ms", file=sys.stderr)
-    print(f"search: {len(lat)} requests in the window, {failed} failed; generator lateness p50 "
+    print(f"search: {seen['attempted']} requests attempted, {failed} failed; generator lateness p50 "
           f"{statistics.median(late) if late else 0.0} ms, p95 {_quantile(late, 0.95) if late else 0.0} ms; "
           f"corpus load {load_s} s of set-up {setup_s} s", file=sys.stderr)
+    if seen["note"]:
+        print(f"search: {seen['note']}", file=sys.stderr)
     checks, correct = _check(torch, cell, reqs, keep, out["answers"], k)
     context = {
         "before": out["before"], "after": out["after"], "trace": summary, "seconds": cell.seconds,
-        "calls": out["calls"], "b2_calls": out["b2"], "model": cell.model, "corpus_rows": mix["corpus"]["rows"],
-        "latency_ms": {"p50": p50, "p95": p95},
+        "spans": out["spans"], "calls": out["calls"], "b2_calls": out["b2"], "model": cell.model,
+        "corpus_rows": mix["corpus"]["rows"], "latency_ms": {"p50": p50, "p95": p95},
     }
     return harness.Result(
-        end_to_end={"searches_per_s": per_s, "setup_s": setup_s},
-        context=context, correct=correct and failed == 0, checks=checks, attempted=len(lat), failed=failed,
+        end_to_end={load.metric: seen["per_s"], "setup_s": setup_s},
+        context=context, correct=correct and failed == 0, checks=checks, attempted=seen["attempted"], failed=failed,
         device=harness.device_record(torch, device, 1, peak) | (
             {"busy_s": summary["busy_s"], "window_s": summary["window_s"]} if summary else {}),
         breakdown=summary["breakdown"] if summary else None,
@@ -295,11 +398,12 @@ def control(cell: common.Cell) -> dict:
     import torch
 
     serving = Serving(torch, cell)
-    reqs = gen_search.schedule(cell.mix, cell.seed, cell.seconds)
-    keep = gen_search.check_sample(reqs, cell.seed, cell.mix["check_requests"])
-    out = serving.window(reqs, keep, cell.seconds, False)
+    load = load_of(cell.mix, cell.seed, cell.seconds)
+    out = serving.window(load, cell.seconds, False)
     k = serving.args.k
     serving.close()
+    seen = load.seen(out["answers"], cell.seconds, out["cpu_s"])
+    reqs, keep = seen["reqs"], seen["keep"]
     requests, served, _ = _requests(reqs, keep, out["answers"])
     c_ids, c_scores, _ = ref_search.answers(cell.model, _state(torch, cell), cell.mix["corpus"], cell.seed,
                                             requests, k, cell.device, lowp=True)

@@ -1,5 +1,5 @@
-"""``POST /search_image`` (query by photo) under open-loop load over a corpus
-made from the seed.
+"""``POST /search_image`` (query by photo) under open- or closed-loop load over
+a corpus made from the seed.
 
 Set-up, as the search driver's (``drivers/search.py::Serving``): the engine
 on the configuration's flags and the harness's weights, the corpus made on
@@ -9,10 +9,11 @@ batcher's warm-up; then the pool of JPEGs made from the seed
 the window will see), and the schedule's warm-up phase of the same
 traffic. The window: every request due in it, sent by ``loadgen_photo.py``
 (a process of its own) at its due time with the photo's bytes; latency
-counts from the due time, and a failed request is infinitely slow. After the
-window closes and every answer is in, the peak memory is read, the server
-and the engine are freed, and the reference
-(``reference/search_image.py``) answers the sampled requests.
+counts from the due time, and a failed request is infinitely slow. A closed
+loop and its metric are the search driver's. After the window closes and
+every answer is in, the peak memory is read, the server and the engine are
+freed, and the reference (``reference/search_image.py``) answers the
+sampled requests.
 
 Traced runs also record, for the readers: the program's spans
 (``bench_port/spans.py``), B2's calls, the attention forward's shapes and
@@ -28,7 +29,7 @@ import subprocess
 import sys
 import time
 
-from bench_port import gen_corpus, gen_photo_query, harness, spans
+from bench_port import gen_corpus, gen_photo_query, harness
 from bench_port.drivers import common, search
 from bench_port.drivers.scan import _AttnShapes
 from bench_port.reference import search_image as ref_search_image
@@ -73,10 +74,11 @@ class PhotoServing(search.Serving):
                 self.engine.search_by_image(f.read(), self.args.k)
         common.free(torch, cell.device)
 
-    def window(self, reqs: list, keep: list, seconds: float, trace: bool, tag: str = "load") -> dict:
-        """One open-loop run of ``reqs`` (its warm-up phase, then the window
-        of ``seconds``) -> the answers, counter snapshots at the window's
-        ends, the trace summary and record, and the set-up's end."""
+    def window(self, load, seconds: float, trace: bool, tag: str = "load") -> dict:
+        """One run of ``load`` (``search.load_of``'s: its warm-up phase,
+        then the window of ``seconds``) -> the answers, counter snapshots at
+        the window's ends, the trace summary and record, this process's CPU
+        seconds in the window, and the set-up's end."""
         from image_search_tpu_torch.utils.metrics import global_metrics
 
         torch, tmp = self.torch, self.cell.tmp
@@ -88,22 +90,22 @@ class PhotoServing(search.Serving):
         tracer.start()
         if trace:
             print(f"search_image: the profiler took {time.perf_counter() - t} s to start", file=sys.stderr)
-        t0 = time.monotonic() + 1.0 - min(0.0, min(r["at"] for r in reqs))
+        t0 = time.monotonic() + 1.0 + load.lead_s()
         with open(spec_path, "w") as f:
-            json.dump({"port": self.srv.server_port, "t0": t0, "k": self.args.k, "photos": self.photos,
-                       "requests": reqs, "keep": keep}, f)
-        loadgen = subprocess.Popen([sys.executable, os.path.join(harness.HERE, "loadgen_photo.py"), spec_path,
-                                    out_path])
+            json.dump({"port": self.srv.server_port, "t0": t0, "seconds": seconds, "k": self.args.k,
+                       "photos": self.photos} | load.spec(), f)
+        loadgen = subprocess.Popen([sys.executable, os.path.join(harness.HERE, load.script), spec_path, out_path])
         self._pin(loadgen.pid)
         try:
             time.sleep(max(0.0, t0 - time.monotonic()))
             setup_end = time.perf_counter()
-            before, long0 = global_metrics.snapshot(), long_launches()
+            before, long0, cpu0 = global_metrics.snapshot(), long_launches(), search.cpu_s()
             for rec in (b2, shapes):
                 if rec:
                     rec.on = True
             with tracer.window():
                 time.sleep(max(0.0, t0 + seconds - time.monotonic()))
+            cpu1 = search.cpu_s()
             for rec in (b2, shapes):
                 if rec:
                     rec.on = False
@@ -120,14 +122,13 @@ class PhotoServing(search.Serving):
                 shapes.restore()
         with open(out_path) as f:
             answers = json.load(f)
-        record = None
-        if tracer.prof is not None and tracer.bounds is not None:
-            record = spans.record(tracer.prof.profiler.kineto_results.events(), *tracer.bounds)
-            print(spans.describe(record), file=sys.stderr)
+        record = search.span_record(tracer)
+        if record is not None:
             print(describe(record), file=sys.stderr)
         return {"answers": answers, "before": before, "after": after, "summary": tracer.summary(), "spans": record,
                 "b2": b2.b2 if b2 else [], "attn_calls": shapes.calls if shapes else [],
-                "long_launches": None if long0 is None else long1 - long0, "setup_end": setup_end}
+                "long_launches": None if long0 is None else long1 - long0, "cpu_s": cpu1 - cpu0,
+                "setup_end": setup_end}
 
 
 def run(cell: common.Cell) -> harness.Result:
@@ -135,22 +136,23 @@ def run(cell: common.Cell) -> harness.Result:
 
     mix, device = cell.mix, cell.device
     serving = PhotoServing(torch, cell)
-    reqs = gen_photo_query.schedule(mix, cell.seed, cell.seconds)
-    keep = gen_photo_query.check_sample(reqs, cell.seed, mix["check_requests"])
-    out = serving.window(reqs, keep, cell.seconds, cell.trace)
+    load = search.load_of(mix, cell.seed, cell.seconds)
+    out = serving.window(load, cell.seconds, cell.trace)
     setup_s = out["setup_end"] - cell.start
     summary = out["summary"]
     peak = common.peak_bytes(torch, device)
     k, load_s, photos = serving.args.k, serving.load_s, serving.photos
     serving.close()
-    lat, late = search.latencies(reqs, out["answers"]["rows"])
-    per_s = search.rate(reqs, out["answers"]["rows"])
-    failed = sum(1 for x in lat if math.isinf(x))
+    seen = load.seen(out["answers"], cell.seconds, out["cpu_s"])
+    reqs, keep, lat, late, failed = seen["reqs"], seen["keep"], seen["lat"], seen["late"], seen["failed"]
     p50, p95 = (search._quantile(lat, 0.5), search._quantile(lat, 0.95)) if lat else (None, None)
-    print(f"search_image: {per_s} searches/s; from the due time p50 {p50} ms, p95 {p95} ms", file=sys.stderr)
-    print(f"search_image: {len(lat)} requests in the window, {failed} failed; generator lateness p95 "
+    print(f"search_image: {seen['per_s']} searches/s ({load.metric}); from the due time p50 {p50} ms, "
+          f"p95 {p95} ms", file=sys.stderr)
+    print(f"search_image: {seen['attempted']} requests attempted, {failed} failed; generator lateness p95 "
           f"{search._quantile(late, 0.95) if late else 0.0} ms; corpus load {load_s} s of set-up {setup_s} s",
           file=sys.stderr)
+    if seen["note"]:
+        print(f"search_image: {seen['note']}", file=sys.stderr)
     checks, correct = _check(torch, cell, reqs, keep, out["answers"], k, photos)
     context = {
         "before": out["before"], "after": out["after"], "trace": summary, "seconds": cell.seconds,
@@ -159,8 +161,8 @@ def run(cell: common.Cell) -> harness.Result:
         "latency_ms": {"p50": p50, "p95": p95},
     }
     return harness.Result(
-        end_to_end={"searches_per_s": per_s, "setup_s": setup_s},
-        context=context, correct=correct and failed == 0, checks=checks, attempted=len(lat), failed=failed,
+        end_to_end={load.metric: seen["per_s"], "setup_s": setup_s},
+        context=context, correct=correct and failed == 0, checks=checks, attempted=seen["attempted"], failed=failed,
         device=harness.device_record(torch, device, 1, peak) | (
             {"busy_s": summary["busy_s"], "window_s": summary["window_s"]} if summary else {}),
         breakdown=summary["breakdown"] if summary else None,
@@ -213,11 +215,12 @@ def control(cell: common.Cell) -> dict:
     import torch
 
     serving = PhotoServing(torch, cell)
-    reqs = gen_photo_query.schedule(cell.mix, cell.seed, cell.seconds)
-    keep = gen_photo_query.check_sample(reqs, cell.seed, cell.mix["check_requests"])
-    out = serving.window(reqs, keep, cell.seconds, False)
+    load = search.load_of(cell.mix, cell.seed, cell.seconds)
+    out = serving.window(load, cell.seconds, False)
     k, photos = serving.args.k, serving.photos
     serving.close()
+    seen = load.seen(out["answers"], cell.seconds, out["cpu_s"])
+    reqs, keep = seen["reqs"], seen["keep"]
     requests, _, _ = _requests(reqs, keep, out["answers"], photos)
     c_ids, c_scores, _ = ref_search_image.answers(cell.model, search._state(torch, cell), cell.mix["corpus"],
                                                   cell.seed, requests, k, cell.device, lowp=True)
@@ -240,7 +243,7 @@ def sweep(cell: common.Cell, rates: list) -> list:
     out = []
     for n, rate_per_s in enumerate(rates):
         reqs = gen_photo_query.schedule(dict(cell.mix, rate_per_s=rate_per_s), cell.seed + n, cell.seconds)
-        res = serving.window(reqs, [], cell.seconds, False, tag=f"rate{n}")
+        res = serving.window(search.OpenLoad(reqs, [], "loadgen_photo.py"), cell.seconds, False, tag=f"rate{n}")
         rows = res["answers"]["rows"]
         lat, _ = search.latencies(reqs, rows)
         half = len(lat) // 2

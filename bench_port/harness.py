@@ -58,6 +58,15 @@ def reader(name: str):
     return mod.read
 
 
+JAX_NAMES = frozenset(("jax", "jaxlib", "flax", "image_search_tpu"))
+
+
+def jax_modules() -> list:
+    """Top-level names in ``sys.modules`` that are JAX's or the JAX
+    package's, compared whole (``image_search_tpu_torch`` is the port)."""
+    return sorted({name.partition(".")[0] for name in list(sys.modules)} & JAX_NAMES)
+
+
 def driver(kind: str):
     return importlib.import_module(f"bench_port.drivers.{kind}")
 

@@ -12,7 +12,8 @@ limit, also printed as the last lines of standard error; the line before
 them reads the host: its CPU steal and memory compaction over the run).
 Without a CUDA
 card, or with fewer cards than the cell asks for, it prints no result and
-exits with 2.
+exits with 2; with JAX or the JAX package loaded once the window has
+closed, with 3.
 """
 
 import time
@@ -72,6 +73,10 @@ def main(argv=None) -> int:
         line = harness.result_line(bench, args.workload, bool(args.trace), res)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    loaded = harness.jax_modules()
+    if loaded:
+        print(f"{args.workload}: the run loaded {loaded}, JAX or the JAX package: no result", file=sys.stderr)
+        return 3
     print(harness.host_line(host0, harness.host_state()), file=sys.stderr)
     harness.print_result(line)
     return 0

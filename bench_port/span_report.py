@@ -3,8 +3,8 @@
     python3 bench_port/span_report.py --workload l14-search-10m --seed <n> --seconds <s>
 
 It runs the cell as ``run.py --trace 1`` does and prints the same result
-line, then keeps the profiler's events (``drivers/search.py`` does not hand them
-to the readers) and reads them with ``bench_port/spans.py``: on standard
+line, then keeps the profiler's events and reads them with
+``bench_port/spans.py`` (as the readers of a traced run do): on standard
 error the per-layer metrics that need that record (``SPAN_METRICS``), the
 share of the device-idle time in which no program span was open, and the
 ten longest device-idle gaps with the spans open across them and the

@@ -53,7 +53,7 @@ def main(argv=None) -> int:
         serving = search.Serving(torch, cell)
         for n, rate in enumerate(float(r) for r in args.rates.split(",")):
             reqs = gen_search.schedule(dict(mix, rate_per_s=rate), args.seed + n, args.seconds)
-            out = serving.window(reqs, [], args.seconds, False, tag=f"rate{n}")
+            out = serving.window(search.OpenLoad(reqs, [], "loadgen.py"), args.seconds, False, tag=f"rate{n}")
             lat, late = search.latencies(reqs, out["answers"]["rows"])
             ok = [x for x in lat if x != float("inf")]
             half = len(lat) // 2

@@ -103,3 +103,12 @@ def test_search_rate_counts_the_windows_answers_up_to_the_last():
     rows[4] = [3, 3, 3.1, 500]  # a failed request is no search done
     assert search.rate(reqs, rows) == 3 / 2.5
     assert search.rate(reqs, [None] * 5) == 0.0
+
+
+def test_jax_modules_compares_whole_top_level_names(monkeypatch):
+    import types
+
+    for name in ("image_search_tpu_torch.fake", "image_search_tpu.index", "flax.linen"):
+        monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    found = harness.jax_modules()
+    assert {"flax", "image_search_tpu"} <= set(found) and "image_search_tpu_torch" not in found
