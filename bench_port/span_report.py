@@ -9,7 +9,7 @@ error the per-layer metrics that need that record (``SPAN_METRICS``), the
 share of the device-idle time in which no program span was open, and the
 ten longest device-idle gaps with the spans open across them and the
 Python garbage collections that overlap them; last on standard output one
-JSON line ``{"spans": <record>, "metrics": {...}, "collections": [...]}``.
+JSON line ``{"spans": <record less its intervals>, "metrics": {...}, "collections": [...]}``.
 """
 
 import gc
@@ -81,6 +81,7 @@ def main(argv=None) -> int:
         took = [(e - s) / 1e9 for s, e, g in in_window if g == gen]
         print(f"collections of generation {gen} in the window: {len(took)}, {sum(took)} s, longest {max(took)} s",
               file=sys.stderr)
+    rec = {key: v for key, v in rec.items() if key != "intervals"}  # one pair a span: too long for a line
     print(json.dumps({"spans": rec, "metrics": kept.get("metrics", {}), "collections": in_window}), flush=True)
     return 0
 

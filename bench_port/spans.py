@@ -61,9 +61,9 @@ class _Thread:
 
 def record(events, w0: int, w1: int) -> dict:
     """The window [w0, w1) (ns, the profiler's clock) ->
-    ``{"host_s": {span: s}, "count": {span: n}, "device_s": {span: s},
-    "device_unspanned_s": s, "idle_s": s, "idle_unspanned_s": s, "gaps": [...]}``.
-    Host and device sums are over the spans that start in the window;
+    ``{"host_s": {span: s}, "count": {span: n}, "intervals": {span: [[start, end], ...]},
+    "device_s": {span: s}, "device_unspanned_s": s, "idle_s": s, "idle_unspanned_s": s, "gaps": [...]}``.
+    Host and device sums and the host intervals (ns) are over the spans that start in the window;
     ``device_unspanned_s`` is the window's device time that no program span
     launched; ``idle_unspanned_s`` the part of the window's device-idle time
     in which no program span was open on any thread; ``gaps`` the ten
@@ -95,11 +95,12 @@ def record(events, w0: int, w1: int) -> dict:
     # launched while that range was innermost, names its range instead
     on_device = _Thread([(s, e, span_of[c]) for s, e, c in ranges if c in span_of])
     inside = [w0 <= s < w1 for s, _, _, _ in spans]
-    out = {"host_s": {}, "count": {}, "device_s": {}, "device_unspanned_s": 0.0}
+    out = {"host_s": {}, "count": {}, "intervals": {}, "device_s": {}, "device_unspanned_s": 0.0}
     for (s, e, name, _), counted in zip(spans, inside):
         if counted:
             out["host_s"][name] = out["host_s"].get(name, 0.0) + (e - s) / 1e9
             out["count"][name] = out["count"].get(name, 0) + 1
+            out["intervals"].setdefault(name, []).append([s, e])
     for s, e, corr in device:
         launch = host.get(corr)
         if launch is not None:
@@ -159,6 +160,12 @@ def describe(rec: dict) -> str:
     share = 100.0 * rec["idle_unspanned_s"] / idle if idle > 0 else 0.0
     return (f"spans: {share} % of the window's device-idle time ({idle} s) had no program span open on any thread; "
             f"{rec['device_unspanned_s']} s of device time launched outside every program span")
+
+
+def union_s(rec: dict, names) -> float:
+    """Seconds in which at least one span of ``names`` that started in the
+    window was open, on any thread: overlapping spans count once."""
+    return sum(e - s for s, e in _union([iv for name in names for iv in rec["intervals"].get(name, ())])) / 1e9
 
 
 def per_batch_ms(ctx: dict, names, field: str = "host_s", per: str = BATCH):

@@ -186,3 +186,31 @@ def test_long_roofline_reads_its_kernels_and_needs_a_launch():
 
     assert read(ctx) == pytest.approx(100 * flops.attn_fwd_bound_s(160, 730, 16, 80, False) / 2e-3)
     assert read(dict(ctx, long_launches=0)) is None and read(dict(ctx, long_launches=None)) is None
+
+
+def _uploads(in_flight, n=256, seconds=40.0):
+    """``n`` uploads over ``seconds``, ``in_flight`` at a time back to back:
+    the same work, each upload's spans longer the more are in flight."""
+    wall = seconds * in_flight / n
+    starts = [k * wall for k in range(n // in_flight) for _ in range(in_flight)]
+    ns = lambda t: int(1e9 * t)
+    rec = {"count": {"image_embed": n, "index_search": n},
+           "host_s": {"image_embed": 0.8 * wall * n, "index_search": 0.2 * wall * n},
+           "intervals": {"image_embed": [[ns(t), ns(t + 0.8 * wall)] for t in starts],
+                         "index_search": [[ns(t + 0.8 * wall), ns(t + wall)] for t in starts]}}
+    return {"spans": rec, "corpus_rows": 2_000_000,
+            "model": model_config.model(model_config.load("dfn5b-clip-vit-h14-378"))}
+
+
+def test_step_share_counts_overlapping_uploads_once():
+    """One upload at a time, or 8 or 16 in flight with each twice or four
+    times as long (the summed walls 8 and 16 times the window): the union of
+    their spans is the window either way, and so is the share."""
+    from bench_port import flops
+
+    read = harness.reader("photo.mfu_pct")
+    one, eight, sixteen = _uploads(1), _uploads(8), _uploads(16)
+    m = one["model"]
+    least = flops.vision_ops(m) / flops.BF16_FLOP_PER_S + flops.b2_bound_s(1, 2_000_000, m["projection_dim"])
+    assert read(one) == pytest.approx(100 * 256 * least / 40.0)
+    assert read(eight) == pytest.approx(read(one)) and read(sixteen) == pytest.approx(read(one))

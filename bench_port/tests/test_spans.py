@@ -95,6 +95,15 @@ def test_host_time_and_count_of_spans_that_start_in_the_window(rec):
     assert "engine.search_many" not in rec["host_s"]
 
 
+def test_overlapping_spans_count_their_shared_time_once(rec):
+    """search.scan on threads 2 and 3 and search.topk abut and overlap;
+    the span before the window is not among them."""
+    assert rec["intervals"]["search.scan"] == [[220 * MS, 300 * MS], [300 * MS, 350 * MS]]
+    assert spans.union_s(rec, ["search.scan"]) == pytest.approx(0.130)
+    assert spans.union_s(rec, ["search.scan", "search.topk"]) == pytest.approx(0.180)
+    assert spans.union_s(rec, ["absent"]) == 0.0
+
+
 def test_a_kernel_belongs_to_the_span_that_launched_it(rec):
     """The sort launched inside search.topk on thread 2 runs while thread 3
     holds a search.scan span: it counts under search.topk only. B2, linked
