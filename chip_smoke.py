@@ -1027,26 +1027,24 @@ def _plain_scores_top(torch, idx, q, k: int):
     (B2's plain version with the tombstone penalties for int8 rows, both
     operands upcast to f32 for bf16 rows), tombstoned rows dropped ->
     (scores, paths), torch.topk's order."""
-    from image_search_tpu_torch.index.index import NEG_INF, _l2
+    from image_search_tpu_torch.index.index import NEG_INF
+    from image_search_tpu_torch.index.slabs import l2
     from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, scores_int8_reference
 
     with idx._lock:
-        slabs, _, scales, pens = idx._snapshot()
-        size = idx._size
-    parts, start = [], 0
-    if scales is not None:
+        sl = idx._snapshot()
+    parts = []
+    if sl.is_int8:
         qi, qs = quantize_queries_int8(q)
-    for i, slab in enumerate(slabs):
-        pen = None if pens is None else pens[i]
-        if scales is not None:
-            parts.append(scores_int8_reference(slab, qi, qs, scales[i], size - start, pen))
+    for slab, scales, pen, start in sl.per_slab():
+        if sl.is_int8:
+            parts.append(scores_int8_reference(slab, qi, qs, scales, sl.size - start, pen))
         else:
-            s = _l2(q).to(slab.dtype).float() @ slab.float().T
+            s = l2(q).to(slab.dtype).float() @ slab.float().T
             s = s if pen is None else s + pen[None, :]
             gpos = torch.arange(slab.shape[0], device=s.device) + start
-            parts.append(torch.where(gpos[None, :] < size, s, torch.full_like(s, NEG_INF)))
-        start += slab.shape[0]
-    v, i = torch.topk(torch.cat(parts, dim=1), min(k, size), dim=-1)
+            parts.append(torch.where(gpos[None, :] < sl.size, s, torch.full_like(s, NEG_INF)))
+    v, i = torch.topk(torch.cat(parts, dim=1), min(k, sl.size), dim=-1)
     keep = v[0] > NEG_INF / 2
     return v[0][keep].cpu().tolist(), [idx.paths[j] for j in i[0][keep].cpu().tolist()]
 
@@ -1057,10 +1055,10 @@ def _plain_top(torch, engine, query: str, refs, k: int):
 
     idx = engine.index
     with idx._lock:
-        slabs, norms, scales, _ = idx._snapshot()
+        sl = idx._snapshot()
         sel = [idx._row[engine._resolve_selection(m)] for m in refs] or [-1]
     text = engine._cache_get(query).float().reshape(1, -1)
-    q = _rocchio_queries(slabs, scales, norms, text, torch.tensor([sel], device=text.device))
+    q = _rocchio_queries(sl, text, torch.tensor([sel], device=text.device))
     return _plain_scores_top(torch, idx, q, k)
 
 
@@ -1331,7 +1329,8 @@ def _slabs_on_device(torch, gen, dev, n: int, mix=None, noise: float = 0.02):
 
 def _index_over(torch, dev, slabs, scales, n: int):
     """A VectorIndex over slabs made on the card (VectorIndex.add quantises on
-    the host: minutes and a 30 GB host array at 10M rows); no paths."""
+    the host: minutes and a 30 GB host array at 10M rows); no paths. Its
+    ``_snapshot()`` is the slabs with unit norms, no removals and size n."""
     from image_search_tpu_torch.index.index import VectorIndex
 
     index = VectorIndex(DIM, device=dev, quantize="int8")
@@ -1342,19 +1341,18 @@ def _index_over(torch, dev, slabs, scales, n: int):
     return index
 
 
-def _needed_blocks(torch, twostage, slabs, sk, n: int, q, tau, m: int, share: int):
+def _needed_blocks(torch, twostage, sl, sk, q, tau, m: int, share: int):
     """For each query and slab: the blocks whose bound exceeds tau (the k-th
     exact score), which a certificate needs chosen, and the query's own pick
     per slab (quota, or quota // share under the union). -> ([B, slabs], [slabs])."""
     qt, _, _ = twostage._exact_query_vector(q, True)
-    q_s, q_res, infl = twostage._query_bound_terms(qt, sk.basis, sk.ub_slack)
-    nb_list = [s.shape[0] // twostage.BLOCK for s in slabs]
+    q_s, q_res, infl = twostage._query_bound_terms(qt, sk)
+    nb_list = [s.shape[0] // twostage.BLOCK for s in sl.rows]
     quotas = [min(nb_i, -(-m * nb_i // sum(nb_list))) for nb_i in nb_list]
-    needed, start = [], 0
-    for i, s in enumerate(sk.sketches):
-        ub = twostage._upper_bounds(q_s, q_res, infl, s, sk.resid[i], None, start, n)
+    needed = []
+    for i in range(len(sk.sketches)):
+        ub = twostage._upper_bounds(q_s, q_res, infl, sl, sk, i)
         needed.append((ub.reshape(q.shape[0], -1, twostage.BLOCK).amax(dim=2) > tau[:, None]).sum(dim=1))
-        start += s.shape[0]
     own = [mi if share == 1 or mi <= 1 else max(1, mi // share) for mi in quotas]
     return torch.stack(needed, dim=1).cpu(), torch.tensor(own)
 
@@ -1403,6 +1401,7 @@ def twostage_10m(torch, dev):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     index = _index_over(torch, dev, slabs, scales, n)
+    sl = index._snapshot()
     sketches, build_s = {}, {}
     for dtype in ("float32", "bfloat16"):
         t0 = time.perf_counter()
@@ -1410,23 +1409,25 @@ def twostage_10m(torch, dev):
         torch.cuda.synchronize()
         build_s[dtype] = time.perf_counter() - t0
         sketches[dtype] = index._sketch
-    nb = sum(s.shape[0] for s in slabs) // twostage.BLOCK
+    nb = sl.capacity // twostage.BLOCK
     print(f"two-stage 10M: {n} rows x {DIM} int8 in {len(slabs)} slabs made in {gen_s:.2f} s; sketch builds {build_s}; "
           f"device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     slabs, scales = tuple(slabs), tuple(scales)
     res = {"rows": n, "k": k, "slabs": len(slabs), "sketch_build_s": build_s}
     for B in (1, 4):
         q = torch.randn(B, 64, generator=gen, device=dev) @ mix + 0.02 * torch.randn(B, DIM, generator=gen, device=dev)
-        want_s, want_i = _search_local(slabs, n, q, k, scales)
+        want_s, want_i = _search_local(sl, q, k)
 
         def full():
-            return _search_local(slabs, n, q, k, scales)
+            return _search_local(sl, q, k)
 
         qi, qs = quantize_queries_int8(q)
-        starts = [sum(s.shape[0] for s in slabs[:j]) for j in range(len(slabs))]
-        scores = torch.cat([stream_scores_int8(sl, qi, qs, scales[j], n - starts[j]) for j, sl in enumerate(slabs)], dim=1)
-        b2_ms = statistics.median(cuda_ms(torch, lambda: [stream_scores_int8(sl, qi, qs, scales[j], n - starts[j])
-                                                          for j, sl in enumerate(slabs)], iters=5))
+
+        def b2_all():
+            return [stream_scores_int8(rows, qi, qs, sc, n - start) for rows, sc, _, start in sl.per_slab()]
+
+        scores = torch.cat(b2_all(), dim=1)
+        b2_ms = statistics.median(cuda_ms(torch, b2_all, iters=5))
         topk_ms = statistics.median(cuda_ms(torch, lambda: exact_topk(scores, k), iters=5))
         del scores
         wall, busy, top = _profiled(torch, full)
@@ -1437,11 +1438,10 @@ def twostage_10m(torch, dev):
             m = VectorIndex._block_budget(sk, TWOSTAGE_C, share, nb)
 
             def two(timer=None):
-                return twostage.twostage_topk_block(slabs, sk.sketches, sk.resid, sk.basis, n, q, k, m, scales,
-                                                    None, sk.ub_slack, share, timer=timer)
+                return twostage.twostage_topk_block(sl, sk, q, k, m, share, timer=timer)
 
             s_, i_, cert = two()
-            needed, own = _needed_blocks(torch, twostage, slabs, sk, n, q, want_s[:, k - 1], m, share)
+            needed, own = _needed_blocks(torch, twostage, sl, sk, q, want_s[:, k - 1], m, share)
             for b in range(B):
                 # the certificate holds iff every block whose bound exceeds the
                 # k-th exact score was chosen; a query's own top blocks of each
@@ -1502,7 +1502,7 @@ def twostage_10m(torch, dev):
     e2e_two, e2e_full = ab_ms(torch, lambda: index.search(q, k), lambda: index.search_twostage(q, k), iters=5)
     res["search_twostage_ms"], res["search_ms"] = e2e_two, e2e_full
     print(f"VectorIndex at 10M, B=1: search_twostage {e2e_two} ms vs search {e2e_full} ms (events around each call)")
-    del index, sketches, slabs, scales, want_s, want_i
+    del index, sketches, slabs, scales, sl, want_s, want_i
     torch.cuda.empty_cache()
 
     # a flat corpus: the certificate must fail, the answer is the full scan's
@@ -1836,7 +1836,8 @@ def bf16_10m(torch, dev):
     f32-upcast plain top-k, timed in turns with the int8 full scan; the two
     ways to score a bf16 slab in f32 on one slab; approx=True against the
     exact order on the int8 rows."""
-    from image_search_tpu_torch.index.index import _l2, _search_local
+    from image_search_tpu_torch.index.index import _search_local
+    from image_search_tpu_torch.index.slabs import Slabs, l2
     from image_search_tpu_torch.ops.score_stream import float_scores, quantize_rows_int8
 
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -1856,13 +1857,16 @@ def bf16_10m(torch, dev):
             bf[-1][c0:c1] = e.bfloat16()
             i8[-1][c0:c1], sc[-1][c0:c1] = quantize_rows_int8(e)
     bf, i8, sc = tuple(bf), tuple(i8), tuple(sc)
+    ones = tuple(torch.ones(s.shape[0], device=dev) for s in sc)
+    bf_sl = Slabs(rows=bf, norms=ones, scales=None, pens=None, size=n)
+    i8_sl = Slabs(rows=i8, norms=ones, scales=sc, pens=None, size=n)
     torch.cuda.synchronize()
     res = {"rows": n, "gb": sum(s.numel() * 2 for s in bf) / 1e9}
     for B in (1, 8):
         q = torch.randn(B, 64, generator=gen, device=dev) @ mix + 0.02 * torch.randn(B, DIM, generator=gen, device=dev)
-        got_s, got_i = _search_local(bf, n, q, k)
+        got_s, got_i = _search_local(bf_sl, q, k)
         check(got_s.dtype == torch.float32, "bf16 scan scores are not f32")
-        qb = _l2(q).bfloat16().float()
+        qb = l2(q).bfloat16().float()
         parts, start = [], 0
         for slab in bf:  # the plain version: both operands upcast to f32, a chunk at a time
             s = torch.cat([qb @ slab[c:c + 262_144].float().T for c in range(0, slab.shape[0], 262_144)], dim=1)
@@ -1877,24 +1881,24 @@ def bf16_10m(torch, dev):
         near[:, 1:] |= (got_s[:, 1:] - got_s[:, :-1]).abs() <= NEAR_TIE
         near[:, :-1] |= (got_s[:, :-1] - got_s[:, 1:]).abs() <= NEAR_TIE
         check(torch.equal(got_i[~near], want_i[~near]), f"bf16 10M B={B}: ids differ from the f32-upcast plain top-k")
-        bf_ms, i8_ms = ab_ms(torch, lambda: _search_local(i8, n, q, k, sc), lambda: _search_local(bf, n, q, k), iters=5)
+        bf_ms, i8_ms = ab_ms(torch, lambda: _search_local(i8_sl, q, k), lambda: _search_local(bf_sl, q, k), iters=5)
         # the two ways to leave a bf16 product in f32, on one slab
-        qb16 = _l2(q).bfloat16()
+        qb16 = l2(q).bfloat16()
         gemm_ms, up_ms = ab_ms(
             torch,
             lambda: torch.cat([qb16.float() @ bf[0][c:c + 262_144].float().T for c in range(0, bf[0].shape[0], 262_144)], dim=1),
-            lambda: float_scores(_l2(q), bf[0]), iters=5,
+            lambda: float_scores(l2(q), bf[0]), iters=5,
         )
         # approx=True: lax.top_k's order, the same values as the exact path
-        a_s, a_i = _search_local(i8, n, q, k, sc, approx=True)
-        e_s, e_i = _search_local(i8, n, q, k, sc)
+        a_s, a_i = _search_local(i8_sl, q, k, approx=True)
+        e_s, e_i = _search_local(i8_sl, q, k)
         check(torch.equal(a_s, e_s), f"approx 10M B={B}: values differ from the exact top-k")
         tie = torch.zeros_like(a_s, dtype=torch.bool)
         tie[:, 1:] |= a_s[:, 1:] == a_s[:, :-1]
         tie[:, :-1] |= a_s[:, :-1] == a_s[:, 1:]
         check(torch.equal(a_i[~tie], e_i[~tie]), f"approx 10M B={B}: ids differ from the exact top-k away from ties")
-        approx_ms, exact_ms = ab_ms(torch, lambda: _search_local(i8, n, q, k, sc),
-                                    lambda: _search_local(i8, n, q, k, sc, approx=True), iters=5)
+        approx_ms, exact_ms = ab_ms(torch, lambda: _search_local(i8_sl, q, k),
+                                    lambda: _search_local(i8_sl, q, k, approx=True), iters=5)
         res[B] = dict(bf16_ms=bf_ms, int8_ms=i8_ms, max_abs_err=err, slab_gemm_f32_out_ms=gemm_ms,
                       slab_upcast_ms=up_ms, approx_ms=approx_ms, exact_ms=exact_ms)
         print(f"bf16 10M B={B}: full scan {bf_ms} ms vs int8 {i8_ms} ms in turns; scores within {err} of the "
@@ -2359,10 +2363,10 @@ def _oracle_pairs(torch, x, threshold: float, chunk: int = 4096):
 
 
 def _dequantized(torch, index):
-    from image_search_tpu_torch.index.index import _gather_rows
+    from image_search_tpu_torch.index.slabs import dequantized
 
-    slabs, _, scales, _ = index._snapshot()
-    return _gather_rows(slabs, scales, torch.arange(index._size, device=slabs[0].device))
+    sl = index._snapshot()
+    return dequantized(sl, torch.arange(sl.size, device=sl.rows[0].device))
 
 
 def _plant(torch, gen, x, pairs, noise: float = 0.01):
@@ -2410,7 +2414,7 @@ def legacy_large(torch, dev, media):
     random 768-d rows with LEGACY_COPIES byte-identical copies: every copy
     found and nothing else; wall time, B2's launches, and the device time of
     one batch's B2 calls and exact top-k, timed apart on the same slabs."""
-    from image_search_tpu_torch.index.index import _gather_rows
+    from image_search_tpu_torch.index.slabs import dequantized
     from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, stream_scores_int8
     from image_search_tpu_torch.ops.topk import exact_topk
 
@@ -2431,24 +2435,22 @@ def legacy_large(torch, dev, media):
     check(found == set(LEGACY_COPIES), f"legacy {n} rows: pairs {sorted(found ^ set(LEGACY_COPIES))[:5]} differ")
     check(min(sc for _, _, sc in pairs) > 0.999, f"legacy {n} rows: a copy scored below 0.999")
     batches = -(-n // batch)
-    check(counts["stream_scores_int8"] == batches * len(index._snapshot()[0]),
+    sl = index._snapshot()
+    check(counts["stream_scores_int8"] == batches * len(sl.rows),
           f"legacy {n} rows: {counts['stream_scores_int8']} B2 launches for {batches} batches")
     # one batch's work, timed apart: B2 on every slab, then the exact top-k
-    slabs, _, scales, pens = index._snapshot()
-    size = index._size
-    qi, qs = quantize_queries_int8(_gather_rows(slabs, scales, torch.arange(batch, device=dev)))
-    starts = [sum(sl.shape[0] for sl in slabs[:i]) for i in range(len(slabs))]
+    qi, qs = quantize_queries_int8(dequantized(sl, torch.arange(batch, device=dev)))
 
     def b2_batch():
-        return [stream_scores_int8(sl, qi, qs, scales[i], size - starts[i], None if pens is None else pens[i])
-                for i, sl in enumerate(slabs)]
+        return [stream_scores_int8(rows, qi, qs, scales, sl.size - start, pens)
+                for rows, scales, pens, start in sl.per_slab()]
 
     scores = torch.cat(b2_batch(), dim=1)
     b2_ms = statistics.median(cuda_ms(torch, b2_batch, iters=5))
     topk_ms = statistics.median(cuda_ms(torch, lambda: exact_topk(scores, 9), iters=5))
     del scores
     share = batches * b2_ms / wall_ms
-    print(f"duplicates legacy (direct) {n} rows x {DIM} int8, {len(slabs)} slab(s), batch {batch}: "
+    print(f"duplicates legacy (direct) {n} rows x {DIM} int8, {len(sl.rows)} slab(s), batch {batch}: "
           f"pairs={len(pairs)} (planted {len(LEGACY_COPIES)}, all found) wall_ms={wall_ms} "
           f"B2 launches={counts['stream_scores_int8']} B2 per batch={b2_ms} ms, B2 share={share:.1%} "
           f"exact_topk per batch={topk_ms} ms ({batches * topk_ms / wall_ms:.1%}) corpus add {build_s:.1f} s")

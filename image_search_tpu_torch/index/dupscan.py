@@ -30,12 +30,12 @@ the approximate scan (:func:`sketch_candidate_pairs`) or the legacy one.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from image_search_tpu_torch.index.index import _gather_1d, _gather_rows
+from image_search_tpu_torch.index.slabs import Slabs, dequantized, gather
 from image_search_tpu_torch.index.twostage import SketchState, slack_for_dim
 from image_search_tpu_torch.ops.blockmax import (
     BLOCK,
@@ -58,17 +58,17 @@ class DupScanBailout(RuntimeError):
     """Sketch bound prunes too little on this corpus — use another scan."""
 
 
-def _prep_slab(sketch, resid, pen, start: int, size: int):
-    """Augment the slab's sketches with their residual norms (so the
-    kernel's dot IS the per-pair bound) and zero the rows that must never
-    produce a pair: tombstoned (pen == NEG_INF) and beyond the live size.
-    Returns (bf16 augmented sketch [n, d_s+1], max ||a - bf16(a)|| over kept
-    rows, a 0-dim tensor)."""
-    n = sketch.shape[0]
-    live = (torch.arange(n, device=sketch.device) + start) < size
-    if pen is not None:
-        live = live & (pen >= 0.0)
-    a32 = torch.cat([sketch.float(), resid.float()[:, None]], dim=1)
+def _prep_slab(sl: Slabs, sk: SketchState, i: int):
+    """Augment slab i's sketches with their residual norms (so the kernel's
+    dot IS the per-pair bound) and zero the rows that must never produce a
+    pair: tombstoned (pen == NEG_INF) and beyond the live size. Returns
+    (bf16 augmented sketch [n, d_s+1], max ||a - bf16(a)|| over kept rows, a
+    0-dim tensor)."""
+    sketch = sk.sketches[i]
+    live = (torch.arange(sketch.shape[0], device=sketch.device) + sl.starts[i]) < sl.size
+    if sl.pens is not None:
+        live = live & (sl.pens[i] >= 0.0)
+    a32 = torch.cat([sketch.float(), sk.resid[i].float()[:, None]], dim=1)
     a32 = torch.where(live[:, None], a32, torch.zeros((), device=a32.device))
     a16 = a32.to(torch.bfloat16)
     delta = torch.sqrt(((a32 - a16.float()) ** 2).sum(dim=1))
@@ -118,23 +118,20 @@ def _from_host(entry) -> np.ndarray:
     return host.numpy()
 
 
-def _rescore_chunk(slabs, scales, pens, size: int, bi, bj, threshold: float):
+def _rescore_chunk(sl: Slabs, bi, bj, threshold: float):
     """PB block pairs -> (flat indices into [PB, 128, 128], scores) of the row
     pairs with i < j, both live, whose full-f32 dot is >= threshold."""
-    pb = bi.shape[0]
     ar = torch.arange(BLOCK, device=bi.device)[None, :]
     gi = bi[:, None] * BLOCK + ar            # [PB, 128] global row ids
     gj = bj[:, None] * BLOCK + ar
-    a = _gather_rows(slabs, scales, gi.reshape(-1)).reshape(pb, BLOCK, -1)
-    b = _gather_rows(slabs, scales, gj.reshape(-1)).reshape(pb, BLOCK, -1)
     # full f32 (no TF32): the emitted score must match the true f32 dot to
     # ~1e-5 so that the guarantee band stays ~2e-4
-    sc = torch.bmm(a, b.transpose(1, 2))
-    vi = gi < size
-    vj = gj < size
-    if pens is not None:
-        vi = vi & (_gather_1d(pens, gi.reshape(-1)).reshape(pb, BLOCK) >= 0)
-        vj = vj & (_gather_1d(pens, gj.reshape(-1)).reshape(pb, BLOCK) >= 0)
+    sc = torch.bmm(dequantized(sl, gi), dequantized(sl, gj).transpose(1, 2))
+    vi = gi < sl.size
+    vj = gj < sl.size
+    if sl.pens is not None:
+        vi = vi & (gather(gi, sl.pens)[0] >= 0)
+        vj = vj & (gather(gj, sl.pens)[0] >= 0)
     keep = (
         vi[:, :, None]
         & vj[:, None, :]
@@ -146,10 +143,7 @@ def _rescore_chunk(slabs, scales, pens, size: int, bi, bj, threshold: float):
 
 
 def sketch_duplicate_pairs(
-    slabs: Sequence[torch.Tensor],
-    scales: Optional[Sequence[torch.Tensor]],
-    pens: Optional[Sequence[torch.Tensor]],
-    size: int,
+    sl: Slabs,
     sketch: SketchState,
     threshold: float,
     *,
@@ -162,12 +156,10 @@ def sketch_duplicate_pairs(
     """Complete (i, j, score) pair list with score >= threshold, i < j.
 
     ``sketch`` must cover exactly the live corpus (``built_rows ==
-    size``); the index wrapper enforces that. Raises
+    sl.size``); the index wrapper enforces that. Raises
     :class:`DupScanBailout` when the bound prunes too little (flat
     corpus)."""
-    s_all, n_pad, slack, nb_real, rows_per_call = _prep_sketch(
-        pens, size, sketch, rows_per_call
-    )
+    s_all, n_pad, slack, nb_real, rows_per_call = _prep_sketch(sl, sketch, rows_per_call)
     # padded/zeroed rows rely on their UB of 0 falling below the compare
     # point — thresholds at or under the slack (~0.013) are not duplicate
     # territory anyway, so refuse rather than emit garbage
@@ -228,12 +220,12 @@ def sketch_duplicate_pairs(
     bi, bj = bi[order], bj[order]
 
     # ---- phase 2: exact rescore of survivors ---------------------------
-    out = _rescore_pairs(slabs, scales, pens, size, bi, bj, threshold, chunk_pairs, _prog)
+    out = _rescore_pairs(sl, bi, bj, threshold, chunk_pairs, _prog)
     _prog(1.0)
     return out
 
 
-def _prep_sketch(pens, size, sketch: SketchState, rows_per_call: int, granule: int = COLS_TILE):
+def _prep_sketch(sl: Slabs, sketch: SketchState, rows_per_call: int, granule: int = COLS_TILE):
     """Shared phase 0 of both scans: augment and zero every slab's sketches
     (_prep_slab), concatenate, pad to a rows_per_call multiple and the depth
     to the kernels' k step (``kernel_depth``: d_s + 1 = 65 -> 80, zero
@@ -243,16 +235,9 @@ def _prep_sketch(pens, size, sketch: SketchState, rows_per_call: int, granule: i
     adjusted rows_per_call)."""
     assert rows_per_call % ROWS_TILE == 0 and rows_per_call % granule == 0
     # small corpora: shrink the call so padding stays proportional to the data
-    total_cap = sum(s.shape[0] for s in sketch.sketches)
-    rows_per_call = min(rows_per_call, -(-total_cap // granule) * granule)
-    parts_s, deltas = [], []
-    start = 0
-    for i, slab_sketch in enumerate(sketch.sketches):
-        pen = None if pens is None else pens[i]
-        a16, d = _prep_slab(slab_sketch, sketch.resid[i], pen, start, size)
-        parts_s.append(a16)
-        deltas.append(d)
-        start += slab_sketch.shape[0]
+    cap = sl.capacity
+    rows_per_call = min(rows_per_call, -(-cap // granule) * granule)
+    parts_s, deltas = zip(*(_prep_slab(sl, sketch, i) for i in range(len(sketch.sketches))))
     # stored-bf16 sketches: _prep_slab's delta only sees the f32 view of
     # the stored values; the original quantization error is bounded by the
     # state's recorded ub_slack (>= max storage delta by construction)
@@ -260,21 +245,18 @@ def _prep_sketch(pens, size, sketch: SketchState, rows_per_call: int, granule: i
     if sketch.sketches[0].dtype == torch.bfloat16 and sketch.ub_slack is not None:
         max_delta += float(sketch.ub_slack)
     slack = _pair_slack(max_delta, sketch.basis.shape[0])
-    n_pad = -(-start // rows_per_call) * rows_per_call
+    n_pad = -(-cap // rows_per_call) * rows_per_call
     s_all = torch.cat(parts_s) if len(parts_s) > 1 else parts_s[0]
     del parts_s
     da = s_all.shape[1]
-    if n_pad != start or kernel_depth(da) != da:
-        s_all = torch.nn.functional.pad(s_all, (0, kernel_depth(da) - da, 0, n_pad - start))
-    nb_real = -(-size // BLOCK)
+    if n_pad != cap or kernel_depth(da) != da:
+        s_all = torch.nn.functional.pad(s_all, (0, kernel_depth(da) - da, 0, n_pad - cap))
+    nb_real = -(-sl.size // BLOCK)
     return s_all.contiguous(), n_pad, slack, nb_real, rows_per_call
 
 
 def sketch_candidate_pairs(
-    slabs: Sequence[torch.Tensor],
-    scales: Optional[Sequence[torch.Tensor]],
-    pens: Optional[Sequence[torch.Tensor]],
-    size: int,
+    sl: Slabs,
     sketch: SketchState,
     threshold: float,
     *,
@@ -299,9 +281,7 @@ def sketch_candidate_pairs(
 
     Callers MUST surface the approximate label (the engine sets
     ``last_duplicate_mode='approximate'``; /duplicates serves it)."""
-    s_all, n_pad, slack, nb_real, rows_per_call = _prep_sketch(
-        pens, size, sketch, rows_per_call, granule=COLS_TILE_V
-    )
+    s_all, n_pad, slack, nb_real, rows_per_call = _prep_sketch(sl, sketch, rows_per_call, granule=COLS_TILE_V)
     # pairs whose UB falls below the compare point are still PROVABLY
     # clean — the candidate filter composes with the certified bound, it
     # just additionally drops low-ranked uncertifiable pairs
@@ -355,23 +335,23 @@ def sketch_candidate_pairs(
     bi, bj = pairs[:, 0], pairs[:, 1]
 
     # ---- phase 2: exact rescore — identical to the certified scan ------
-    out = _rescore_pairs(slabs, scales, pens, size, bi, bj, threshold, chunk_pairs, _prog)
+    out = _rescore_pairs(sl, bi, bj, threshold, chunk_pairs, _prog)
     _prog(1.0)
     return out
 
 
-def _rescore_pairs(slabs, scales, pens, size, bi, bj, threshold, chunk_pairs, prog) -> List[Tuple[int, int, float]]:
+def _rescore_pairs(sl: Slabs, bi, bj, threshold, chunk_pairs, prog) -> List[Tuple[int, int, float]]:
     """Exact-rescore the (bi, bj) block pairs, emitting every row pair with
     true f32 dot >= threshold, i < j. Shared phase 2 of the certified and
     the candidate (approximate) scans; ``prog`` is called with fractions in
     [0.5, 1.0]."""
-    dev = slabs[0].device
+    dev = sl.rows[0].device
     out: List[Tuple[int, int, float]] = []
     n_chunks = -(-len(bi) // chunk_pairs)
     for k, lo in enumerate(range(0, len(bi), chunk_pairs)):
         cbi = torch.from_numpy(bi[lo : lo + chunk_pairs]).to(dev)
         cbj = torch.from_numpy(bj[lo : lo + chunk_pairs]).to(dev)
-        idx, v = _rescore_chunk(slabs, scales, pens, size, cbi, cbj, threshold)
+        idx, v = _rescore_chunk(sl, cbi, cbj, threshold)
         idx = idx.cpu().numpy()
         p = idx // (BLOCK * BLOCK)
         rem = idx % (BLOCK * BLOCK)

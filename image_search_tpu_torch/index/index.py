@@ -14,7 +14,7 @@ f32, bf16 or int8 rows:
   (plain XLA in the reference; ``ops.score_stream.float_scores``);
 - rows live in slabs: the first doubles up to ``slab_rows``, then whole new
   slabs are added, so growth never copies the corpus; capacity grows in
-  multiples of 4096 rows;
+  multiples of 4096 rows; searches read them as a ``slabs.Slabs`` snapshot;
 - tombstones are additive score penalties (0 live, NEG_INF removed), passed
   to the scan only once a removal happened (``remove_paths``; with
   ``exclude=True`` the store also keeps rescans from re-adding the paths);
@@ -44,10 +44,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from image_search_tpu_torch.index import twostage
+from image_search_tpu_torch.index import dupscan, twostage
+from image_search_tpu_torch.index.slabs import Slabs, dequantized, l2
 from image_search_tpu_torch.index.store import EmbeddingStore
 from image_search_tpu_torch.ops.row_quant import normalize_rows_into
-from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queries_int8, row_norms, stream_scores_int8
+from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queries_int8, stream_scores_int8
 from image_search_tpu_torch.ops.topk import exact_topk, lax_topk
 from image_search_tpu_torch.utils.metrics import span
 
@@ -61,52 +62,15 @@ _APPEND_ROWS = 16384  # raw rows on the device per transform launch (50 MB of f3
 QUANT_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
-def _l2(x: torch.Tensor) -> torch.Tensor:
-    """Rows l2-normalized; each row's norm is independent of the batch
-    (``row_norms``)."""
-    return x / torch.clamp(row_norms(x), min=1e-12)
-
-
-def _gather_rows(slabs, scales, idx):
-    """Gather global rows [m] from the slab list -> [m, D] f32 normalized."""
-    out = torch.zeros((idx.shape[0], slabs[0].shape[1]), dtype=torch.float32, device=idx.device)
-    start = 0
-    for i, slab in enumerate(slabs):
-        n = slab.shape[0]
-        off = torch.clamp(idx - start, 0, n - 1)
-        rows = slab[off].float()
-        if slab.dtype == torch.int8:
-            rows = rows * scales[i][off][:, None]
-        in_slab = (idx >= start) & (idx < start + n)
-        out = torch.where(in_slab[:, None], rows, out)
-        start += n
-    return out
-
-
-def _gather_1d(slabs, idx):
-    """Gather a slabbed 1-D quantity (norms) at global idx [m] -> [m] f32."""
-    out = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
-    start = 0
-    for vec in slabs:
-        n = vec.shape[0]
-        off = torch.clamp(idx - start, 0, n - 1)
-        in_slab = (idx >= start) & (idx < start + n)
-        out = torch.where(in_slab, vec[off].float(), out)
-        start += n
-    return out
-
-
-def _rocchio_queries(slabs, scales, norms, text_emb, sel_idx):
+def _rocchio_queries(sl: Slabs, text_emb, sel_idx):
     """Reference Rocchio weighting (search.rs:60-67) in raw-vector space, for
     B queries at once: query = average(average(selected_raw), text_raw).
     ``sel_idx`` [B, m] holds global rows, -1 for none; a row with no
     selection gives 0.5 * text, which l2-normalizes to exactly the plain
     text query."""
-    B, m = sel_idx.shape
+    m = sel_idx.shape[1]
     mask = (sel_idx >= 0).float()
-    idx = torch.clamp(sel_idx, min=0).reshape(-1)
-    raw = _gather_rows(slabs, scales, idx) * _gather_1d(norms, idx)[:, None]
-    raw = raw.reshape(B, m, -1) * mask[..., None]
+    raw = dequantized(sl, torch.clamp(sel_idx, min=0), raw=True) * mask[..., None]
     total = raw[:, 0]
     for j in range(1, m):  # in selection order at any B (a reduction's order follows the shape)
         total = total + raw[:, j]
@@ -114,35 +78,33 @@ def _rocchio_queries(slabs, scales, norms, text_emb, sel_idx):
     return (sel_avg + text_emb.float()) * 0.5
 
 
-def _search_local(slabs, size: int, queries, k: int, scales=None, pens=None, approx: bool = False):
-    """Exact cosine top-k over the slab list; global row ids follow the slab
-    concatenation order. ``pens`` (same slab layout, f32) is the additive
-    tombstone penalty, or None before the first removal. ``approx`` takes
-    ``lax.top_k``'s order (what the reference's ``approx_max_k`` returns
-    off the TPU) instead of ``exact_topk``'s two-level order."""
+def _full_scan(sl: Slabs, queries) -> torch.Tensor:
+    """Raw queries [B, D] -> scores [B, capacity] over every slab: B2 a slab
+    for int8 rows, one GEMM a slab for f32 and bf16 rows; tombstoned rows
+    score NEG_INF and so do rows at or past ``size``."""
     parts = []
-    start = 0
     with span("search.scan"):
-        if scales is not None:
+        if sl.is_int8:
             qi, qs = quantize_queries_int8(queries.float())
-            for i, slab in enumerate(slabs):
-                parts.append(
-                    stream_scores_int8(
-                        slab, qi, qs, scales[i], size - start, None if pens is None else pens[i]
-                    )
-                )
-                start += slab.shape[0]
+            for rows, scales, pens, start in sl.per_slab():
+                parts.append(stream_scores_int8(rows, qi, qs, scales, sl.size - start, pens))
         else:
-            q = _l2(queries.float())
-            for i, slab in enumerate(slabs):
-                s = float_scores(q, slab)
+            q = l2(queries.float())
+            for rows, _, pens, start in sl.per_slab():
+                s = float_scores(q, rows)
                 if pens is not None:
-                    s = s + pens[i][None, :]
-                n = slab.shape[0]
-                valid = (torch.arange(n, device=slab.device) + start) < size
+                    s = s + pens[None, :]
+                valid = (torch.arange(rows.shape[0], device=rows.device) + start) < sl.size
                 parts.append(torch.where(valid[None, :], s, torch.full_like(s, NEG_INF)))
-                start += n
-        scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _search_local(sl: Slabs, queries, k: int, approx: bool = False):
+    """Exact cosine top-k over the slabs; global row ids follow the slab
+    concatenation order. ``approx`` takes ``lax.top_k``'s order (what the
+    reference's ``approx_max_k`` returns off the TPU) instead of
+    ``exact_topk``'s two-level order."""
+    scores = _full_scan(sl, queries)
     with span("search.topk"):
         return lax_topk(scores, k) if approx else exact_topk(scores, k)
 
@@ -178,16 +140,14 @@ def _fetch(*tensors):
     return out
 
 
-def _fused_twostage(text_fn, ids, sel, slabs, norms, scales, pens, size, sk, k, m, share):
+def _fused_twostage(text_fn, ids, sel, sl: Slabs, sk: twostage.SketchState, k, m, share):
     """The cold-query serving path (the reference's ``_fused_twostage_fn``,
     one XLA program there): token ids -> text tower -> Rocchio -> certified
     two-stage, queued on one stream with no host sync in between.
     -> (scores, ids, all(certified), raw text embeddings), on the device."""
     text = text_fn(ids).float()
-    q = _rocchio_queries(slabs, scales, norms, text, sel)
-    s, i, cert = twostage.twostage_topk_block(
-        slabs, sk.sketches, sk.resid, sk.basis, size, q, k, m, scales, pens, sk.ub_slack, share,
-    )
+    q = _rocchio_queries(sl, text, sel)
+    s, i, cert = twostage.twostage_topk_block(sl, sk, q, k, m, share)
     return s, i, cert.all(), text
 
 
@@ -464,8 +424,7 @@ class VectorIndex:
             n_i = self._emb_slabs[len(sketches)].shape[0]
             sketches.append(self._zeros((n_i, d_s), sdtype))
             resid.append(self._zeros((n_i,)))
-        start = 0
-        for i, slab in enumerate(self._emb_slabs):
+        for i, (slab, scale, _, start) in enumerate(self._snapshot().per_slab()):
             n_i = slab.shape[0]
             pad = n_i - sketches[i].shape[0]
             if pad < 0:
@@ -477,12 +436,11 @@ class VectorIndex:
             if s_lo < s_hi:
                 l0 = ((s_lo - start) // _UPDATE_BLOCK) * _UPDATE_BLOCK
                 l1 = min(n_i, -(-(s_hi - start) // _UPDATE_BLOCK) * _UPDATE_BLOCK)
-                sc = None if self._scale_slabs is None else self._scale_slabs[i][l0:l1]
+                sc = None if scale is None else scale[l0:l1]
                 s, t, d = twostage.sketch_slab(slab[l0:l1], sc, sk.basis, to_bf16)
                 sketches[i][l0:l1] = s
                 resid[i][l0:l1] = t
                 slack = torch.maximum(slack, d)
-            start += n_i
         self._sketch = twostage.SketchState(
             sk.basis, tuple(sketches), tuple(resid), self._size, slack
         )
@@ -533,13 +491,15 @@ class VectorIndex:
     def _clamp_k(self, k: int) -> int:
         return max(1, min(k, self._size if self._size else 1))
 
-    def _snapshot(self):
-        """Caller holds the lock: slab references for lock-free compute."""
-        return (
-            tuple(self._emb_slabs),
-            tuple(self._norm_slabs),
-            None if self._scale_slabs is None else tuple(self._scale_slabs),
-            tuple(self._pen_slabs) if self._removed else None,
+    def _snapshot(self) -> Slabs:
+        """Caller holds the lock: the slabs and the size, for lock-free
+        compute."""
+        return Slabs(
+            rows=tuple(self._emb_slabs),
+            norms=tuple(self._norm_slabs),
+            scales=None if self._scale_slabs is None else tuple(self._scale_slabs),
+            pens=tuple(self._pen_slabs) if self._removed else None,
+            size=self._size,
         )
 
     def _as_queries(self, x, rows: int) -> torch.Tensor:
@@ -560,9 +520,8 @@ class VectorIndex:
                 B = q.shape[0]
                 return np.zeros((B, 0), np.float32), np.zeros((B, 0), np.int32)
             k = self._clamp_k(k)
-            slabs, _, scales, pens = self._snapshot()
-            size = self._size
-        return self._to_host(*_search_local(slabs, size, q, k, scales, pens, approx))
+            sl = self._snapshot()
+        return self._to_host(*_search_local(sl, q, k, approx))
 
     def search_with_feedback(self, text_embedding, selected_paths: Sequence[str], k: int = 1000,
                              approx: bool = False):
@@ -589,15 +548,14 @@ class VectorIndex:
                 return np.zeros((B, 0), np.float32), np.zeros((B, 0), np.int32)
             k = self._clamp_k(k)
             rows_list = [[self._row[p] for p in sel if p in self._row] for sel in selected_paths_list]
-            slabs, norms, scales, pens = self._snapshot()
-            size = self._size
+            sl = self._snapshot()
         m = max(1, max(len(r) for r in rows_list))
         sel = np.full((B, m), -1, np.int64)
         for b, r in enumerate(rows_list):
             sel[b, : len(r)] = r
         with span("search.rocchio"):
-            q = _rocchio_queries(slabs, scales, norms, text, torch.from_numpy(sel).to(self.device))
-        return self._to_host(*_search_local(slabs, size, q, k, scales, pens, approx))
+            q = _rocchio_queries(sl, text, torch.from_numpy(sel).to(self.device))
+        return self._to_host(*_search_local(sl, q, k, approx))
 
     # -- the corpus sketch (index/twostage.py) ----------------------------------
 
@@ -619,17 +577,17 @@ class VectorIndex:
         with self._lock:
             if self._size == 0:
                 return
-            slabs, _, scales, _ = self._snapshot()
-            size = self._size
+            sl = self._snapshot()
+        size = sl.size
         m = min(sample_rows, size)
         idx = torch.from_numpy(np.linspace(0, size - 1, m).astype(np.int64)).to(self.device)
-        sample = _gather_rows(slabs, scales, idx).cpu().numpy()
+        sample = dequantized(sl, idx).cpu().numpy()
         basis_np = twostage.fit_basis(sample, d_s)
         if min_certifiable > 0.0:
             est = twostage.estimate_certifiable_fraction(
                 sample, basis_np, size, k=est_k,
                 candidate_rows=twostage.DEFAULT_BLOCKS * twostage.BLOCK,
-                fs_slack=twostage.FULL_SCAN_SLACK[twostage._slab_dtype_name(slabs[0])],
+                fs_slack=twostage.FULL_SCAN_SLACK[sl.dtype_name],
                 # bf16 sketch storage costs a data-derived ub_slack that is
                 # not known yet: charge the 0.01 the reference charges
                 ub_slack=0.01 if to_bf16 else 0.0,
@@ -647,8 +605,8 @@ class VectorIndex:
         basis = torch.from_numpy(basis_np).to(self.device)
         sketches, resid = [], []
         slack = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i, slab in enumerate(slabs):
-            s, t, d = twostage.sketch_slab(slab, None if scales is None else scales[i], basis, to_bf16)
+        for rows, scales, _, _ in sl.per_slab():
+            s, t, d = twostage.sketch_slab(rows, scales, basis, to_bf16)
             sketches.append(s)
             resid.append(t)
             slack = torch.maximum(slack, d)
@@ -672,22 +630,22 @@ class VectorIndex:
 
     def _twostage_snapshot(self, k, candidates, selected_paths_list=None):
         """One lock acquisition for everything the two-stage path needs:
-        ``(sk, k, c, slabs, norms, scales, pens, size, rows_list)``, with
-        ``sk=None`` whenever the fast path cannot serve (empty index, stale
-        or dropped sketch, or k so large that c candidates cannot hold it)."""
+        ``(slabs, sketch, k, c, rows_list)``, or None whenever the fast path
+        cannot serve (empty index, stale or dropped sketch, or k so large
+        that c candidates cannot hold it)."""
         with self._lock:
             sk = self._sketch
             if self._size == 0 or sk is None or sk.built_rows != self._size:
-                return (None,) * 9
+                return None
             k = self._clamp_k(k)
             rows_list = None
             if selected_paths_list is not None:
                 rows_list = [[self._row[p] for p in sel if p in self._row] for sel in selected_paths_list]
-            slabs, norms, scales, pens = self._snapshot()
-            c = min(max(candidates, k), sum(s.shape[0] for s in slabs) - 1)
+            sl = self._snapshot()
+            c = min(max(candidates, k), sl.capacity - 1)
             if c < k:
-                return (None,) * 9
-            return sk, k, c, slabs, norms, scales, pens, self._size, rows_list
+                return None
+            return sl, sk, k, c, rows_list
 
     @staticmethod
     def _block_budget(sk, c: int, share: int, nb: int) -> int:
@@ -698,7 +656,7 @@ class VectorIndex:
         per_q = c // 2 if sk.sketches[0].dtype == torch.bfloat16 else c // 4
         return min(max(c, per_q * share), nb - 1)
 
-    def _twostage_run(self, sk, q, k, c, slabs, scales, pens, size, fallback, count_failures, n_real: int = 0):
+    def _twostage_run(self, sl: Slabs, sk, q, k, c, fallback, count_failures, n_real: int = 0):
         """Run the bound + rescore and keep the certificate's books.
         ``fallback`` answers when the certificate fails; ``count_failures=
         False`` keeps by-construction failures out of the adaptive disable.
@@ -712,11 +670,9 @@ class VectorIndex:
         if os.environ.get("ISX_TWOSTAGE_ROWS"):
             # row candidates (the reference's A/B switch): an exact top-c
             # selection over every bound
-            s, i, cert = twostage.twostage_topk(
-                slabs, sk.sketches, sk.resid, sk.basis, size, q, k, c, scales, pens, sk.ub_slack,
-            )
+            s, i, cert = twostage.twostage_topk(sl, sk, q, k, c)
         else:
-            nb = sum(s.shape[0] for s in slabs) // twostage.BLOCK
+            nb = sl.capacity // twostage.BLOCK
             m = self._block_budget(sk, c, share, nb)
             if m < 1 or m * twostage.BLOCK < k or (share > 1 and (m // share) * twostage.BLOCK < k):
                 # too small for block granularity to leave both a block not
@@ -724,9 +680,7 @@ class VectorIndex:
                 # of only its m // share share): the full scan is as cheap
                 self.twostage_fallbacks += 1
                 return fallback()
-            s, i, cert = twostage.twostage_topk_block(
-                slabs, sk.sketches, sk.resid, sk.basis, size, q, k, m, scales, pens, sk.ub_slack, share,
-            )
+            s, i, cert = twostage.twostage_topk_block(sl, sk, q, k, m, share)
         s, i, ok = _fetch(s, i, cert.all())
         if ok:
             self.twostage_certified += 1
@@ -753,13 +707,12 @@ class VectorIndex:
         ``count_failures=False`` exempts a call from that count."""
         q = torch.as_tensor(queries, dtype=torch.float32)
         q = self._as_queries(q, q.numel() // self.dim)
-        sk, k2, c, slabs, _, scales, pens, size, _ = self._twostage_snapshot(k, candidates)
-        if sk is None:
+        snap = self._twostage_snapshot(k, candidates)
+        if snap is None:
             self.twostage_fallbacks += 1
             return self.search(q, k)
-        return self._twostage_run(
-            sk, q, k2, c, slabs, scales, pens, size, lambda: self.search(q, k), count_failures,
-        )
+        sl, sk, k2, c, _ = snap
+        return self._twostage_run(sl, sk, q, k2, c, lambda: self.search(q, k), count_failures)
 
     def _note_twostage_failure(self) -> None:
         self.twostage_fallbacks += 1
@@ -783,17 +736,16 @@ class VectorIndex:
         is absent or stale or the certificate fails."""
         B = len(selected_paths_list)
         text = self._as_queries(text_embeddings, B)
-        sk, k2, c, slabs, norms, scales, pens, size, rows_list = self._twostage_snapshot(
-            k, candidates, selected_paths_list
-        )
-        if sk is None:
+        snap = self._twostage_snapshot(k, candidates, selected_paths_list)
+        if snap is None:
             self.twostage_fallbacks += 1
             return self.search_with_feedback_batch(text, selected_paths_list, k)
+        sl, sk, k2, c, rows_list = snap
         bpad = _pow2_at_least(B, 8)
         sel = torch.from_numpy(_selection_matrix(rows_list, bpad)).to(self.device)
         text_p = torch.cat([text, text[:1].expand(bpad - B, self.dim)]) if bpad > B else text
-        q = _rocchio_queries(slabs, scales, norms, text_p, sel)
-        got = self._twostage_run(sk, q, k2, c, slabs, scales, pens, size, lambda: None, count_failures, n_real=B)
+        q = _rocchio_queries(sl, text_p, sel)
+        got = self._twostage_run(sl, sk, q, k2, c, lambda: None, count_failures, n_real=B)
         if got is None:  # the certificate failed: the full-scan feedback batch
             return self.search_with_feedback_batch(text, selected_paths_list, k)
         return got[0][:B], got[1][:B]
@@ -813,14 +765,13 @@ class VectorIndex:
         this path cannot serve (no or stale sketch, corpus too small for
         block granularity)."""
         B = len(selected_paths_list)
-        sk, k2, c, slabs, norms, scales, pens, size, rows_list = self._twostage_snapshot(
-            k, candidates, selected_paths_list
-        )
-        if sk is None:
+        snap = self._twostage_snapshot(k, candidates, selected_paths_list)
+        if snap is None:
             return None, None, None
+        sl, sk, k2, c, rows_list = snap
         bpad = int(ids.shape[0])
         share = 1 << (B - 1).bit_length() if B > 1 else 1
-        nb = sum(s.shape[0] for s in slabs) // twostage.BLOCK
+        nb = sl.capacity // twostage.BLOCK
         m = self._block_budget(sk, c, share, nb)
         # true division here, as the reference's fused guard has it
         if m < 1 or m * twostage.BLOCK < k2 or (share > 1 and (m / share) * twostage.BLOCK < k2):
@@ -828,7 +779,7 @@ class VectorIndex:
             return None, None, None
         sel = torch.from_numpy(_selection_matrix(rows_list, bpad)).to(self.device)
         ids_dev = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
-        s, i, cert, text = _fused_twostage(text_fn, ids_dev, sel, slabs, norms, scales, pens, size, sk, k2, m, share)
+        s, i, cert, text = _fused_twostage(text_fn, ids_dev, sel, sl, sk, k2, m, share)
         ok, s_np, i_np, text_np = _fetch(cert, s[:B], i[:B], text[:B])
         if ok:
             self.twostage_certified += 1
@@ -858,9 +809,8 @@ class VectorIndex:
             rows = sorted(self._row.values())
             if not rows:
                 return []
-            slabs, _, scales, pens = self._snapshot()
-            size = self._size
-        k = min(neighbors + 1, size)  # +1: the self-match is always there
+            sl = self._snapshot()
+        k = min(neighbors + 1, sl.size)  # +1: the self-match is always there
         pair_chunks: List[np.ndarray] = []
         score_chunks: List[np.ndarray] = []
         total = len(rows)
@@ -868,8 +818,8 @@ class VectorIndex:
             chunk = rows[lo : lo + batch]
             idx = np.full((batch,), chunk[-1], np.int64)
             idx[: len(chunk)] = chunk
-            q = _gather_rows(slabs, scales, torch.from_numpy(idx).to(self.device))
-            sc, nb = _search_local(slabs, size, q, k, scales, pens, approx)
+            q = dequantized(sl, torch.from_numpy(idx).to(self.device))
+            sc, nb = _search_local(sl, q, k, approx)
             sc = sc[: len(chunk)].cpu().numpy()
             nb = nb[: len(chunk)].cpu().numpy().astype(np.int64)
             r = np.asarray(chunk, np.int64)[:, None]
@@ -897,41 +847,28 @@ class VectorIndex:
         return [(int(i), int(j), float(s)) for (i, j), s in zip(pairs, scores)]
 
     def _sketch_scan_snapshot(self):
-        from image_search_tpu_torch.index import dupscan
-
+        """-> (slabs, sketch) for the sketch scans; raises
+        ``dupscan.DupScanBailout`` without a fresh sketch."""
         with self._lock:
             sk = self._sketch
             if sk is None or sk.built_rows != self._size:
                 raise dupscan.DupScanBailout("no fresh sketch")
-            slabs, _, scales, pens = self._snapshot()
-            return slabs, scales, pens, self._size, sk
+            return self._snapshot(), sk
 
     def find_near_duplicates_sketch(self, threshold: float = 0.95, progress=None, **kw):
         """The certified sketch scan (``dupscan.sketch_duplicate_pairs``):
         every live pair with cosine >= threshold, not truncated to a
         neighbour count. Raises ``dupscan.DupScanBailout`` without a fresh
         sketch or when the corpus is too flat for the bound to prune."""
-        from image_search_tpu_torch.index import dupscan
-
-        slabs, scales, pens, size, sk = self._sketch_scan_snapshot()
-        if size == 0:
-            return []
-        return dupscan.sketch_duplicate_pairs(
-            slabs, scales, pens, size, sk, threshold, progress=progress, **kw
-        )
+        sl, sk = self._sketch_scan_snapshot()
+        return dupscan.sketch_duplicate_pairs(sl, sk, threshold, progress=progress, **kw)
 
     def find_near_duplicates_candidates(self, threshold: float = 0.95, progress=None, **kw):
         """The approximate sketch-candidate scan
         (``dupscan.sketch_candidate_pairs``): emitted pairs carry true f32
         scores >= threshold; recall is heuristic. Needs a fresh sketch."""
-        from image_search_tpu_torch.index import dupscan
-
-        slabs, scales, pens, size, sk = self._sketch_scan_snapshot()
-        if size == 0:
-            return []
-        return dupscan.sketch_candidate_pairs(
-            slabs, scales, pens, size, sk, threshold, progress=progress, **kw
-        )
+        sl, sk = self._sketch_scan_snapshot()
+        return dupscan.sketch_candidate_pairs(sl, sk, threshold, progress=progress, **kw)
 
     # -- lookups ---------------------------------------------------------------
 
@@ -951,7 +888,5 @@ class VectorIndex:
             rows = [self._row[p] for p in paths if p in self._row]
             if not rows:
                 return np.zeros((0, self.dim), np.float32)
-            slabs, norms, scales, _ = self._snapshot()
-        idx = torch.tensor(rows, device=self.device)
-        raw = _gather_rows(slabs, scales, idx) * _gather_1d(norms, idx)[:, None]
-        return raw.cpu().numpy()
+            sl = self._snapshot()
+        return dequantized(sl, torch.tensor(rows, device=self.device), raw=True).cpu().numpy()

@@ -74,6 +74,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from image_search_tpu_torch.index.slabs import Slabs, gather, gather_blocks, l2
 from image_search_tpu_torch.ops.score_stream import float_scores, quantize_queries_int8, stream_scores_int8
 from image_search_tpu_torch.ops.topk import exact_topk, stable_topk
 
@@ -249,10 +250,6 @@ def sketch_slab(
 # -- the search ------------------------------------------------------------------
 
 
-def _slab_dtype_name(slab: torch.Tensor) -> str:
-    return str(slab.dtype).removeprefix("torch.")
-
-
 def _exact_query_vector(queries: torch.Tensor, is_int8: bool):
     """Raw [B, D] queries -> (the vector the full scan really dots rows
     against, int8 values, f32 scales); the last two are None for float
@@ -261,99 +258,78 @@ def _exact_query_vector(queries: torch.Tensor, is_int8: bool):
     if is_int8:
         qi, qs = quantize_queries_int8(queries.float())
         return qi.float() * qs[:, None], qi, qs
-    from image_search_tpu_torch.index.index import _l2
-
-    return _l2(queries.float()), None, None
+    return l2(queries.float()), None, None
 
 
-def _query_bound_terms(qt_vec, basis, ub_slack):
+def _query_bound_terms(qt_vec, sk: SketchState):
     """-> (q_s [B, d_s], q_t [B], the per-query UB inflation [B])."""
-    q_s = qt_vec @ basis
+    q_s = qt_vec @ sk.basis
     qs2 = (q_s * q_s).sum(dim=1)
     q_res = torch.sqrt(torch.clamp((qt_vec * qt_vec).sum(dim=1) - qs2, min=0.0) + SLACK_T)
-    return q_s, q_res, torch.sqrt(qs2) * ub_slack + slack_for_dim(qt_vec.shape[1])
+    return q_s, q_res, torch.sqrt(qs2) * sk.ub_slack + slack_for_dim(qt_vec.shape[1])
 
 
-def _upper_bounds(q_s, q_res, infl, sk, resid, pen, start: int, size: int):
-    """[B, n] upper bounds of one slab's rows, NEG_INF at rows >= size.
+def _upper_bounds(q_s, q_res, infl, sl: Slabs, sk: SketchState, i: int):
+    """[B, n_i] upper bounds of slab i's rows, NEG_INF at rows >= size.
 
     A bf16 sketch is dotted against bf16(q_s), both upcast to f32: each
     product is exact in f32 and the two roundings are in ``ub_slack``."""
-    if sk.dtype == torch.bfloat16:
-        dot = q_s.to(torch.bfloat16).float() @ sk.float().T
+    sketch = sk.sketches[i]
+    if sketch.dtype == torch.bfloat16:
+        dot = q_s.to(torch.bfloat16).float() @ sketch.float().T
     else:
-        dot = q_s @ sk.T
-    ub = dot + q_res[:, None] * resid[None, :] + infl[:, None]
-    if pen is not None:
-        ub = ub + pen[None, :]
-    valid = (torch.arange(sk.shape[0], device=ub.device) + start) < size
+        dot = q_s @ sketch.T
+    ub = dot + q_res[:, None] * sk.resid[i][None, :] + infl[:, None]
+    if sl.pens is not None:
+        ub = ub + sl.pens[i][None, :]
+    valid = (torch.arange(sketch.shape[0], device=ub.device) + sl.starts[i]) < sl.size
     return torch.where(valid[None, :], ub, torch.full_like(ub, NEG_INF))
 
 
-def _gather_candidates(parts, idx):
-    """Per-query candidate rows idx [B, c] (global ids) of a slabbed array,
-    rows [n, D] or a vector [n] per slab -> [B, c, D] or [B, c]."""
-    out, start = None, 0
-    for p in parts:
-        n = p.shape[0]
-        v = p[torch.clamp(idx - start, 0, n - 1)]
-        in_slab = ((idx >= start) & (idx < start + n)).reshape(idx.shape + (1,) * (v.dim() - 2))
-        out = torch.where(in_slab, v, torch.zeros_like(v) if out is None else out)
-        start += n
-    return out
-
-
-def _rescore_int8(slabs, scales, idx, qi, qs):
+def _rescore_int8(sl: Slabs, idx, qi, qs):
     """Exact rescore of per-query candidate rows idx [B, c]: the integer dot
     (exact in f32: every partial sum is an integer below 2^24), times the
     query scale, times the row scale, the full scan's multiply order."""
-    s = torch.einsum("bd,bcd->bc", qi.float(), _gather_candidates(slabs, idx).float())
-    return s * qs[:, None] * _gather_candidates(scales, idx)
+    rows, scales = gather(idx, sl.rows, sl.scales)
+    s = torch.einsum("bd,bcd->bc", qi.float(), rows.float())
+    return s * qs[:, None] * scales
 
 
-def _rescore_float(slabs, idx, q):
+def _rescore_float(sl: Slabs, idx, q):
     """Exact rescore of per-query candidate rows idx [B, c] of f32 or bf16
     slabs (bf16: the query cast to bf16, exact products, as the full scan):
     equal to the full scan's scores up to f32 reduction order. Each query
     has its own rows (a batched product, not ``float_scores``' one GEMM), so
     bf16 operands are upcast: the products are exact either way."""
-    rows = _gather_candidates(slabs, idx)
+    (rows,) = gather(idx, sl.rows)
     if rows.dtype == torch.bfloat16:
         q, rows = q.to(torch.bfloat16).float(), rows.float()
     return torch.einsum("bd,bcd->bc", q, rows)
 
 
-def twostage_topk(
-    slabs, sketches, resid, basis, size: int, queries, k: int,
-    c: int = DEFAULT_CANDIDATES, scales=None, pens=None, ub_slack=0.0,
-):
+def twostage_topk(sl: Slabs, sk: SketchState, queries, k: int, c: int = DEFAULT_CANDIDATES):
     """Certified exact top-k, row candidates (the reference's first
     selection, served under ``ISX_TWOSTAGE_ROWS``): the exact top-(c+1) rows
     by UB, the top c rescored. -> (vals [B, k], ids [B, k] int64, certified
     [B] bool); rows of ``certified`` that are False MUST be re-answered by
     the full scan. The [B, N] bound array is built whole, as the reference
     builds it."""
-    is_int8 = slabs[0].dtype == torch.int8
-    fs_slack = FULL_SCAN_SLACK[_slab_dtype_name(slabs[0])]
-    qt_vec, qi, qs = _exact_query_vector(queries, is_int8)
-    q_s, q_res, infl = _query_bound_terms(qt_vec, basis, ub_slack)
-    parts, start = [], 0
-    for i, sk in enumerate(sketches):
-        parts.append(_upper_bounds(q_s, q_res, infl, sk, resid[i], None if pens is None else pens[i], start, size))
-        start += sk.shape[0]
+    qt_vec, qi, qs = _exact_query_vector(queries, sl.is_int8)
+    q_s, q_res, infl = _query_bound_terms(qt_vec, sk)
+    parts = [_upper_bounds(q_s, q_res, infl, sl, sk, i) for i in range(len(sk.sketches))]
     ub_vals, ub_idx = exact_topk(torch.cat(parts, dim=1), c + 1)
     cand = ub_idx[:, :c]
     rest_max = ub_vals[:, c]
-    if is_int8:
-        ex = _rescore_int8(slabs, scales, cand, qi, qs)
+    if sl.is_int8:
+        ex = _rescore_int8(sl, cand, qi, qs)
     else:
-        ex = _rescore_float(slabs, cand, qt_vec)
-    if pens is not None:
-        ex = ex + _gather_candidates(pens, cand)
-    ex = torch.where(cand < size, ex, torch.full_like(ex, NEG_INF))
+        ex = _rescore_float(sl, cand, qt_vec)
+    if sl.pens is not None:
+        ex = ex + gather(cand, sl.pens)[0]
+    ex = torch.where(cand < sl.size, ex, torch.full_like(ex, NEG_INF))
     vals, pos = stable_topk(ex, k)  # lax.top_k's order, as the reference
     ids = torch.gather(cand, 1, pos)
-    certified = rest_max <= vals[:, k - 1] - fs_slack
+    certified = rest_max <= vals[:, k - 1] - FULL_SCAN_SLACK[sl.dtype_name]
     return vals, ids, certified
 
 
@@ -384,9 +360,7 @@ def _select_blocks(bmax, m_i: int, share_eff: int):
 
 
 def twostage_topk_block(
-    slabs, sketches, resid, basis, size: int, queries, k: int,
-    m: int = DEFAULT_BLOCKS, scales=None, pens=None, ub_slack=0.0, share: int = 0,
-    timer=None,
+    sl: Slabs, sk: SketchState, queries, k: int, m: int = DEFAULT_BLOCKS, share: int = 0, timer=None,
 ):
     """Certified exact top-k, block candidates (comment above): the serving
     path. ``share`` is the count of DISTINCT queries the union budget is
@@ -400,14 +374,12 @@ def twostage_topk_block(
     ``timer(name)``, when given, is called at the end of each part (stage1,
     gather, rescore, topk) for a caller that splits the time."""
     mark = timer or (lambda name: None)
-    is_int8 = slabs[0].dtype == torch.int8
-    fs_slack = FULL_SCAN_SLACK[_slab_dtype_name(slabs[0])]
-    qt_vec, qi, qs = _exact_query_vector(queries, is_int8)
-    q_s, q_res, infl = _query_bound_terms(qt_vec, basis, ub_slack)
+    qt_vec, qi, qs = _exact_query_vector(queries, sl.is_int8)
+    q_s, q_res, infl = _query_bound_terms(qt_vec, sk)
     B = qt_vec.shape[0]
     share_eff = B if share <= 0 else max(1, min(share, B))
     nb_list = []
-    for s in slabs:
+    for s in sl.rows:
         if s.shape[0] % BLOCK:
             raise ValueError(f"slab rows {s.shape[0]} are not a multiple of BLOCK={BLOCK}")
         nb_list.append(s.shape[0] // BLOCK)
@@ -416,46 +388,30 @@ def twostage_topk_block(
 
     chosen_blocks = []
     rest_max = torch.full((B,), NEG_INF, device=qt_vec.device)
-    start = 0
-    for i, sk in enumerate(sketches):
-        ub = _upper_bounds(q_s, q_res, infl, sk, resid[i], None if pens is None else pens[i], start, size)
-        bmax = ub.reshape(B, nb_list[i], BLOCK).amax(dim=2)
+    for i, nb_i in enumerate(nb_list):
+        ub = _upper_bounds(q_s, q_res, infl, sl, sk, i)
+        bmax = ub.reshape(B, nb_i, BLOCK).amax(dim=2)
         blocks = _select_blocks(bmax, quotas[i], share_eff)
-        chosen = torch.zeros(nb_list[i], dtype=torch.bool, device=bmax.device).index_fill_(0, blocks, True)
+        chosen = torch.zeros(nb_i, dtype=torch.bool, device=bmax.device).index_fill_(0, blocks, True)
         rest_max = torch.maximum(rest_max, torch.where(chosen[None, :], NEG_INF, bmax).amax(dim=1))
         chosen_blocks.append(blocks)
-        start += sk.shape[0]
     mark("stage1")
 
-    d = slabs[0].shape[1]
-    rows, rscale, rpens, gid = [], [], [], []
-    start = 0
-    for i, blocks in enumerate(chosen_blocks):
-        nb_i = nb_list[i]
-        rows.append(slabs[i].view(nb_i, BLOCK, d)[blocks])
-        if scales is not None:
-            rscale.append(scales[i].view(nb_i, BLOCK)[blocks])
-        if pens is not None:
-            rpens.append(pens[i].view(nb_i, BLOCK)[blocks])
-        gid.append((start + blocks[:, None] * BLOCK + torch.arange(BLOCK, device=blocks.device)).reshape(-1))
-        start += slabs[i].shape[0]
-    n_rows = sum(quotas) * BLOCK
-    rows = torch.cat(rows).reshape(n_rows, d)
-    gid = torch.cat(gid)
-    rpens = torch.cat(rpens).reshape(n_rows) if pens is not None else None
+    rows, rscale, rpens, gid = gather_blocks(sl, chosen_blocks, BLOCK)
+    n_rows = gid.shape[0]
     mark("gather")
 
-    if is_int8:
-        ex = stream_scores_int8(rows, qi, qs, torch.cat(rscale).reshape(n_rows), n_rows, rpens)
+    if sl.is_int8:
+        ex = stream_scores_int8(rows, qi, qs, rscale, n_rows, rpens)
     else:
         ex = float_scores(qt_vec, rows)
         if rpens is not None:
             ex = ex + rpens[None, :]
-    ex = torch.where(gid[None, :] < size, ex, torch.full_like(ex, NEG_INF))
+    ex = torch.where(gid[None, :] < sl.size, ex, torch.full_like(ex, NEG_INF))
     mark("rescore")
 
     vals, pos = exact_topk(ex, k)
     ids = gid[pos]
-    certified = rest_max <= vals[:, k - 1] - fs_slack
+    certified = rest_max <= vals[:, k - 1] - FULL_SCAN_SLACK[sl.dtype_name]
     mark("topk")
     return vals, ids, certified

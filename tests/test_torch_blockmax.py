@@ -19,6 +19,7 @@ import torch
 
 from image_search_tpu.ops import blockmax as jax_blockmax
 from image_search_tpu_torch.index.dupscan import _prep_sketch
+from image_search_tpu_torch.index.slabs import Slabs
 from image_search_tpu_torch.index.twostage import SketchState
 from image_search_tpu_torch.ops import blockmax
 
@@ -125,7 +126,8 @@ def test_prep_sketch_slab_padded_to_80_changes_no_maximum(rb0):
         basis=torch.zeros(DIM_UNUSED, DA - 1), sketches=(torch.from_numpy(sk),), resid=(torch.from_numpy(resid),),
         built_rows=size,
     )
-    s_all, n_pad, _, nb_real, _ = _prep_sketch(None, size, state, n, granule=blockmax.COLS_TILE_V)
+    sl = Slabs(rows=(torch.empty(n, 0),), norms=(torch.ones(n),), scales=None, pens=None, size=size)  # the layout only
+    s_all, n_pad, _, nb_real, _ = _prep_sketch(sl, state, n, granule=blockmax.COLS_TILE_V)
     assert s_all.shape == (n_pad, blockmax.kernel_depth(DA)) == (n, 80)
     assert s_all.dtype == torch.bfloat16 and s_all.is_contiguous() and nb_real == -(-size // 128)
     assert not s_all[:, DA:].any()

@@ -1088,6 +1088,7 @@ def test_bf16_sketch_bound_holds_on_every_row(dev):
     """bf16 sketches on the card: the stage-1 bound (bf16 q_s, both operands
     upcast) is >= the full scan's exact score of every row."""
     from image_search_tpu_torch.index import twostage
+    from image_search_tpu_torch.index.slabs import Slabs
 
     g = torch.Generator(device=dev).manual_seed(32)
     x = F.normalize(torch.randn(65_536, 768, generator=g, device=dev), dim=-1)
@@ -1096,8 +1097,10 @@ def test_bf16_sketch_bound_holds_on_every_row(dev):
     sk, resid, slack = twostage.sketch_slab(rows, scales, basis, to_bf16=True)
     q = torch.cat([torch.randn(4, 768, generator=g, device=dev), x[:4]])
     qt, qi, qs = twostage._exact_query_vector(q, True)
-    q_s, q_res, infl = twostage._query_bound_terms(qt, basis, slack)
-    ub = twostage._upper_bounds(q_s, q_res, infl, sk, resid, None, 0, rows.shape[0])
+    state = twostage.SketchState(basis, (sk,), (resid,), rows.shape[0], slack)
+    q_s, q_res, infl = twostage._query_bound_terms(qt, state)
+    sl = Slabs(rows=(rows,), norms=(torch.ones_like(scales),), scales=(scales,), pens=None, size=rows.shape[0])
+    ub = twostage._upper_bounds(q_s, q_res, infl, sl, state, 0)
     exact = stream_scores_int8(rows, qi, qs, scales, rows.shape[0])
     assert sk.dtype == torch.bfloat16 and float(slack) > 0
     assert bool((ub >= exact).all())
@@ -1152,12 +1155,12 @@ def test_fused_twostage_path_never_syncs_with_the_host(dev):
     text_fn = lambda ids: table[ids].mean(dim=1)  # a stand-in tower: ids -> [B, D]
     ids = torch.randint(0, 1000, (2, 77), generator=g, device=dev)
     sel = torch.tensor([[5, 9, -1, -1, -1, -1, -1, -1], [-1] * 8], device=dev)
-    sk, k, c, slabs, norms, scales, pens, size, _ = index._twostage_snapshot(100, 4096)
-    m = index._block_budget(sk, c, 2, sum(s.shape[0] for s in slabs) // 128)
+    sl, sk, k, c, _ = index._twostage_snapshot(100, 4096)
+    m = index._block_budget(sk, c, 2, sl.capacity // 128)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        s, i, cert, text = _fused_twostage(text_fn, ids, sel, slabs, norms, scales, pens, size, sk, k, m, 2)
+        s, i, cert, text = _fused_twostage(text_fn, ids, sel, sl, sk, k, m, 2)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     ok, s_np, i_np, text_np = _fetch(cert, s, i, text)
@@ -1172,7 +1175,8 @@ def test_bf16_full_scan_scores_in_f32_and_matches_the_upcast_plain_top_k(dev):
     thousands of rows), within 1e-5 of the plain version (both operands
     upcast to f32: the same exact products, summed in another order), and
     its ids equal the plain top-k's away from near-ties."""
-    from image_search_tpu_torch.index.index import _l2, _search_local
+    from image_search_tpu_torch.index.index import _search_local
+    from image_search_tpu_torch.index.slabs import Slabs, l2
     from image_search_tpu_torch.ops.score_stream import float_scores
 
     g = torch.Generator(device=dev).manual_seed(17)
@@ -1180,10 +1184,11 @@ def test_bf16_full_scan_scores_in_f32_and_matches_the_upcast_plain_top_k(dev):
     rows = F.normalize(torch.randn(n, 768, generator=g, device=dev), dim=-1).bfloat16()
     slabs = (rows[:262_144].contiguous(), torch.cat([rows[262_144:], rows.new_zeros(4096 - (n - 262_144) % 4096, 768)]))
     q = torch.randn(4, 768, generator=g, device=dev)
-    s = float_scores(_l2(q), slabs[0])
+    s = float_scores(l2(q), slabs[0])
     assert s.dtype == torch.float32 and not torch.equal(s.bfloat16().float(), s)
-    got_s, got_i = _search_local(slabs, n, q, k)
-    plain = _l2(q).bfloat16().float() @ rows.float().T
+    norms = tuple(torch.ones(r.shape[0], device=dev) for r in slabs)
+    got_s, got_i = _search_local(Slabs(rows=slabs, norms=norms, scales=None, pens=None, size=n), q, k)
+    plain = l2(q).bfloat16().float() @ rows.float().T
     want_s, want_i = torch.topk(plain, k, dim=-1)
     assert got_s.dtype == torch.float32 and (got_s - want_s).abs().max().item() <= 1e-5
     near = torch.zeros_like(got_s, dtype=torch.bool)
@@ -1229,13 +1234,11 @@ def test_removal_runs_the_penalty_variant_bitwise_the_plain_version(dev):
     s, i = index.search(q, k=50)
     assert stream_scores_int8.penalty_launches - p0 == stream_scores_int8.launches - n0 == len(index._emb_slabs)
     assert not {0, 17, 4095, 4096, 8999} & set(i[s > NEG_INF / 2].tolist())
-    slabs, _, scales, pens = index._snapshot()
+    sl = index._snapshot()
     qi, qs = quantize_queries_int8(q)
-    start = 0
-    for j, slab in enumerate(slabs):
-        got = stream_scores_int8(slab, qi, qs, scales[j], index._size - start, pens[j])
-        assert torch.equal(got, scores_int8_reference(slab, qi, qs, scales[j], index._size - start, pens[j]))
-        start += slab.shape[0]
+    for slab, scales, pens, start in sl.per_slab():
+        got = stream_scores_int8(slab, qi, qs, scales, sl.size - start, pens)
+        assert torch.equal(got, scores_int8_reference(slab, qi, qs, scales, sl.size - start, pens))
 
 
 ROW_QUANT_WIDTHS = [1, 5, 32, 64, 100, 129, 136, 257, 512, 768, 1024, 1280]

@@ -18,7 +18,8 @@ from image_search_tpu.index.index import VectorIndex as JaxIndex
 from image_search_tpu.server.engine import SearchEngine as RefEngine
 from image_search_tpu.utils.metrics import global_metrics as ref_metrics
 from image_search_tpu_torch.index.dupscan import DupScanBailout
-from image_search_tpu_torch.index.index import VectorIndex, _gather_rows
+from image_search_tpu_torch.index.index import VectorIndex
+from image_search_tpu_torch.index.slabs import dequantized
 from image_search_tpu_torch.server.engine import SearchEngine
 from image_search_tpu_torch.utils.metrics import global_metrics
 from test_dupscan import (
@@ -62,8 +63,7 @@ def _indexes(emb, quantize=None, remove=(), **kw):
 
 
 def _stored(port):
-    slabs, _, scales, _ = port._snapshot()
-    return _gather_rows(slabs, scales, torch.arange(port._size)).numpy()
+    return dequantized(port._snapshot(), torch.arange(port._size)).numpy()
 
 
 def assert_same_pairs(got, want, threshold):

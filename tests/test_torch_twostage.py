@@ -27,6 +27,7 @@ from image_search_tpu.index import twostage as jts
 from image_search_tpu.index.index import VectorIndex as JaxIndex
 from image_search_tpu_torch.index import twostage
 from image_search_tpu_torch.index.index import VectorIndex
+from image_search_tpu_torch.index.slabs import Slabs
 from image_search_tpu_torch.ops.score_stream import quantize_queries_int8, scores_int8_reference
 from test_torch_index import exact_rows, int_queries
 
@@ -205,7 +206,7 @@ def test_share_counts_real_queries_not_pad_copies():
         ("ref", ref, lambda ix, q, share: jts.twostage_topk_block(
             *_ref_args(ix), jnp.asarray(q), k, m, ix._snapshot()[2], ix._snapshot()[3], ix._sketch.ub_slack, share)),
         ("port", port, lambda ix, q, share: twostage.twostage_topk_block(
-            *_port_args(ix), torch.from_numpy(q), k, m, ix._snapshot()[2], ix._snapshot()[3], ix._sketch.ub_slack, share)),
+            ix._snapshot(), ix._sketch, torch.from_numpy(q), k, m, share)),
     ):
         v1, i1, c1 = (np.asarray(a) for a in call(ix, q1, 0))
         v8, i8, c8 = (np.asarray(a) for a in call(ix, q8, 1))
@@ -220,11 +221,6 @@ def test_share_counts_real_queries_not_pad_copies():
 def _ref_args(ix):
     sk = ix._sketch
     return ix._snapshot()[0], sk.sketches, sk.resid, sk.basis, np.int32(ix._size)
-
-
-def _port_args(ix):
-    sk = ix._sketch
-    return ix._snapshot()[0], sk.sketches, sk.resid, sk.basis, ix._size
 
 
 def test_per_slab_quotas_multi_slab_batched():
@@ -265,11 +261,11 @@ def _bounds_and_exact(port, q):
     """The port's stage-1 bounds and the full scan's exact scores of every
     row of the one-slab int8 index ``port`` for raw queries q."""
     sk = port._sketch
-    slabs, _, scales, _ = port._snapshot()
+    sl = port._snapshot()
     qt, qi, qs = twostage._exact_query_vector(torch.from_numpy(q), True)
-    q_s, q_res, infl = twostage._query_bound_terms(qt, sk.basis, sk.ub_slack)
-    ub = twostage._upper_bounds(q_s, q_res, infl, sk.sketches[0], sk.resid[0], None, 0, port._size)
-    exact = scores_int8_reference(slabs[0], qi, qs, scales[0], port._size)
+    q_s, q_res, infl = twostage._query_bound_terms(qt, sk)
+    ub = twostage._upper_bounds(q_s, q_res, infl, sl, sk, 0)
+    exact = scores_int8_reference(sl.rows[0], qi, qs, sl.scales[0], port._size)
     return ub[:, : port._size], exact[:, : port._size]
 
 
@@ -300,8 +296,10 @@ def test_bf16_bound_survives_rounding_midpoints():
     row[0, :d_s] = u
     s16, resid, slack = twostage._sketch_chunk(torch.from_numpy(row), None, torch.from_numpy(basis), True)
     q = torch.from_numpy(row)
-    q_s, q_res, infl = twostage._query_bound_terms(q, torch.from_numpy(basis), slack)
-    ub = twostage._upper_bounds(q_s, q_res, infl, s16, resid, None, 0, 1)
+    sk = twostage.SketchState(torch.from_numpy(basis), (s16,), (resid,), 1, slack)
+    q_s, q_res, infl = twostage._query_bound_terms(q, sk)
+    sl = Slabs(rows=(q,), norms=(torch.ones(1),), scales=None, pens=None, size=1)
+    ub = twostage._upper_bounds(q_s, q_res, infl, sl, sk, 0)
     exact = float(q[0] @ q[0])
     raw = float(q_s.to(torch.bfloat16).float()[0] @ s16.float()[0])
     assert raw < exact - 0.005 and float(ub[0, 0]) >= exact
@@ -437,9 +435,9 @@ def test_int8_rescore_is_kernel_b2_on_the_gathered_rows():
     _, port = _pair(rows[:8_192], "int8")
     q = rows[8_192:]
     s, i = port.search_twostage(q, 50, candidates=64)
-    slabs, _, scales, _ = port._snapshot()
+    sl = port._snapshot()
     qi, qs = quantize_queries_int8(torch.from_numpy(q))
-    full = scores_int8_reference(slabs[0], qi, qs, scales[0], port._size).numpy()
+    full = scores_int8_reference(sl.rows[0], qi, qs, sl.scales[0], port._size).numpy()
     np.testing.assert_array_equal(s, np.take_along_axis(full, i.astype(np.int64), axis=1))
     assert port.twostage_certified == 1
 
@@ -485,7 +483,7 @@ def test_slack_follows_the_row_width(dim):
     basis = torch.from_numpy(np.linalg.qr(np.random.default_rng(dim).normal(size=(dim, 8)))[0].astype(np.float32))
     q = torch.zeros(2, dim)
     q[:, 0] = 1.0
-    _, _, infl = twostage._query_bound_terms(q, basis, 0.0)
+    _, _, infl = twostage._query_bound_terms(q, twostage.SketchState(basis, (), (), 0, 0.0))
     assert torch.equal(infl, torch.full((2,), want, dtype=torch.float32))
 
 
